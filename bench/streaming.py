@@ -51,7 +51,7 @@ def main():
 
     # donated chunk loop: the carry is updated in place, so live HBM must
     # not grow per chunk (the reference's zero-allocation hot-loop
-    # contract, src/core/fft.ts:89-106 — donation is the TPU analogue).
+    # contract, src/core/fft.ts:89-106 — donation is the analogue).
     import jax
     from pragma_dsp_tpu.stream import jit_stream_step, stft_stream_init, stft_step
     from pragma_dsp_tpu.utils.benchharness import memory_snapshot

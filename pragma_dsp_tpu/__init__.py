@@ -1,9 +1,10 @@
-"""pragma_dsp_tpu — a TPU-native DSP/SDR framework (JAX / XLA / Pallas).
+"""pragma_dsp_tpu — a batched DSP/SDR framework in JAX, run on the GPU.
 
 Built from scratch with the capabilities of pragma-dsp (see SURVEY.md),
-re-designed TPU-first: batched split-complex FFTs, fused windowed-spectrum
-ops, Pallas kernels on the hot path, and sharded/streaming pipelines over
-device meshes.
+re-designed for accelerators: batched split-complex FFTs (cuFFT through
+``jnp.fft`` on the GPU), batched windowed-spectrum ops, and
+sharded/streaming pipelines over device meshes. The package name is an
+import path kept from the system's first target.
 
 The API ladder mirrors the reference (PLAN.md:16-32 of the reference):
 

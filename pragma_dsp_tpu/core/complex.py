@@ -2,14 +2,14 @@
 
 The reference (pragma-dsp) represents complex vectors as split typed arrays
 ``{real: Float64Array, imag: Float64Array}`` (reference src/core/fft.ts:1-14).
-That layout happens to be the TPU-native choice as well: Pallas/Mosaic has no
-complex dtype, and split planes map cleanly onto (8, 128) vector-register
-tiles, so we keep it — as an immutable JAX pytree instead of a mutable struct.
+We keep that layout — as an immutable JAX pytree instead of a mutable
+struct. The FFT boundary joins the planes into complex64 for ``jnp.fft``
+and splits them again (ops/dispatch.py).
 
 Unlike the reference, every array here may carry arbitrary leading batch
 dimensions; the complex-element axis is always the last one. Batch-first is
-where TPU throughput comes from: per-frame loops in the reference become a
-batch dimension here.
+where accelerator throughput comes from: per-frame loops in the reference
+become a batch dimension here.
 """
 
 from __future__ import annotations

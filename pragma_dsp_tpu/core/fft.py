@@ -1,20 +1,19 @@
 """Batched radix-2 FFT in pure jnp — the framework's reference compute path.
 
-Design (TPU-first, see SURVEY.md §7):
+Design (see SURVEY.md §7):
 
 * **Stockham autosort formulation.** The reference uses iterative
   decimation-in-time with an explicit bit-reversed scatter
   (reference src/core/fft.ts:110-140). A bit-reversed gather/scatter is
-  hostile to TPU tiled memory, so we use the self-sorting Stockham
+  hostile to tiled accelerator memory, so we use the self-sorting Stockham
   recursion instead: each level is a reshape (free), one vectorised
   butterfly (VPU element-wise ops) and a concatenate — no gathers, no
   scatters, no bit-reversal table. The recursion unrolls at trace time
   (sizes are static under jit), giving XLA a flat chain of log2(N) fused
   element-wise stages.
 
-* **Split real/imag planes** (no complex dtype): maps directly onto vector
-  registers and keeps the door open for the Pallas kernels in
-  ``pragma_dsp_tpu.ops.fft_pallas`` which share this exact dataflow.
+* **Split real/imag planes** (no complex dtype), the framework's
+  ``ComplexArray`` layout.
 
 * **Trace-time f64 twiddles.** Twiddle factors are computed with numpy in
   float64 at trace time and embedded as constants cast to the compute
@@ -155,16 +154,15 @@ class Radix2Fft:
 
     Parity with the reference's ``Radix2Fft`` (src/core/fft.ts:63-152):
     validates the size is a power of two at construction and the input
-    length on every call. On TPU a "plan" is the jit compilation cache;
+    length on every call. Under JAX a "plan" is the jit compilation cache;
     this class pins the size so each instance compiles exactly once per
     input batch shape and dtype.
 
     Every call routes through ``ops.dispatch`` (imported lazily — ops
     sits above core), so the expert rung — and everything built on it:
-    ``xform.FFT``, ``FluentFFT``, ``FourierService`` — gets the fused
-    Pallas kernel on TPU rather than the portable Stockham path (a
-    measured ~10x throughput gap at n=1024 on v5e; round-1 VERDICT
-    weak #2).
+    ``xform.FFT``, ``FluentFFT``, ``FourierService`` — gets the
+    platform's chosen path (cuFFT on the GPU) rather than always the
+    portable Stockham recursion.
     """
 
     def __init__(self, size: int):

@@ -4,7 +4,7 @@ Parity with reference src/math/complex.ts:26-241. The reference ships each
 op in an allocating and an in-place ``*Into`` form; JAX arrays are immutable,
 so every op here is functional — in-place reuse is the compiler's job
 (XLA buffer donation / fusion), not the caller's. Under jit these ops fuse
-into neighbouring kernels, so the distinction costs nothing on TPU.
+into neighbouring kernels, so the distinction costs nothing.
 
 All ops broadcast over leading batch axes and preserve the input dtype.
 """

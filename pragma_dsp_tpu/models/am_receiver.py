@@ -49,7 +49,7 @@ class AmReceiver:
         xc = as_complex_array(iq)
         # Taps stay numpy (see fm_receiver.__call__): an in-trace
         # jnp.asarray would trace them and knock upfirdn off its
-        # banded-MXU path.
+        # banded-matmul path.
         chan = upfirdn(xc, self._chan_taps, 1, self._decim1)
         env = am_demod(chan, remove_dc=True)
         return upfirdn(env, self._audio_taps,

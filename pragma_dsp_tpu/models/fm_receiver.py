@@ -90,8 +90,8 @@ class FmReceiver:
         # 1. channel select: lowpass + decimate in one polyphase pass.
         # Taps stay numpy: converting them with jnp.asarray here would
         # yield a TRACER when __call__ runs under an outer jit, and
-        # upfirdn's banded-MXU path (which needs concrete taps) would
-        # silently fall back to the ~100x-slower dilated conv.
+        # upfirdn's banded-matmul path (which needs concrete taps) would
+        # silently fall back to the dilated conv.
         chan = upfirdn(xc, self._chan_taps, 1, self._decim1)
         # 2. discriminator -> baseband audio at if_rate, normalised
         audio_if = fm_discriminate(chan, sample_rate=c.if_rate,

@@ -16,16 +16,16 @@ separation is a forward (analysis) DFT across branches, so a tone at
 exp(+2j*pi*k*p/C) per branch, which the forward kernel picks out at
 c = k).
 
-All heavy work is batched: branch filtering is one dot over the T tap
-frames (MXU) and the cross-branch FFT uses the dispatch path. The
-channel axis is what `parallel/` shards over chips with all_to_all.
+All heavy work is batched: branch filtering is T weighted shifted
+slices of the frame view and the cross-branch FFT uses the dispatch
+path. The channel axis is what `parallel/` shards over devices with
+all_to_all.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -68,8 +68,7 @@ def _branch_filter_frames(x: ComplexArray, h, channels: int
     # Frames[m] needs x blocks m, m-1, ..., m-T+1 -> left-pad T-1 zero
     # blocks; block (m-t) is then a length-m row slice of the padded
     # block array at offset T-1-t, so the branch filter is T weighted
-    # shifted slices (an index gather here was the dominant cost of the
-    # whole channelizer on v5e).
+    # shifted slices instead of an index gather.
     def one_plane(xb):
         pad = [(0, 0)] * len(batch) + [(t_taps - 1, 0), (0, 0)]
         xp = jnp.pad(xb, pad)
@@ -95,15 +94,10 @@ def _branch_filter(x: ComplexArray, h, channels: int
 
 
 def pfb_channelize(x, channels: int, taps=None,
-                   taps_per_branch: int = 8,
-                   precision: Optional[str] = None) -> ComplexArray:
+                   taps_per_branch: int = 8) -> ComplexArray:
     """Channelize IQ [..., L] (L multiple of C) into [..., M, C] complex
     channel samples, M = L // C; channel c is centred at +c/C of the
-    input sample rate and runs at rate fs/C.
-
-    precision: 'highest' or 'bf16x3' for the cross-branch analysis DFT
-    (bf16x3 halves its MXU time at ~105 dB SNR; C <= 128 DFTs are a
-    single matmul and ignore it)."""
+    input sample rate and runs at rate fs/C."""
     xc = as_complex_array(x)
     if taps is None:
         taps = pfb_taps(channels, taps_per_branch)
@@ -112,38 +106,21 @@ def pfb_channelize(x, channels: int, taps=None,
         raise ValueError(
             f"input length {xc.real.shape[-1]} not a multiple of "
             f"channels={channels}")
-    from ..core.complex import is_power_of_two
-    from .dispatch import get_fft_impl
-
-    if (channels >= 128 and is_power_of_two(channels)
-            and jax.default_backend() == "tpu"
-            and xc.real.dtype == jnp.float32
-            and get_fft_impl() in ("auto", "pallas")):
-        # One fused kernel: branch filter -> cross-branch DFT ->
-        # natural channel order, a single HBM pass (ops/pfb_pallas.py)
-        # instead of branch-filter write + FFT read/write + relayout.
-        from .pfb_pallas import pfb_channelize_pallas
-
-        return pfb_channelize_pallas(xc, taps, channels,
-                                     precision=precision)
     vr, vi = _branch_filter(xc, taps, channels)
     # Analysis DFT across branches (forward kernel, unnormalised).
-    return _fft(ComplexArray(vr, vi), axis=-1, precision=precision)
+    return _fft(ComplexArray(vr, vi), axis=-1)
 
 
 def pfb_channelize_frames(x, channels: int, taps=None,
-                          taps_per_branch: int = 8,
-                          precision: Optional[str] = None) -> ComplexArray:
+                          taps_per_branch: int = 8) -> ComplexArray:
     """Channelize an (M, C)-frame view of the IQ stream: input
     [..., M, C] complex frames (frame m holds stream samples
     [m*C, (m+1)*C)) -> [..., M, C] natural-order channel samples,
     numerically identical to ``pfb_channelize`` on the flat stream.
 
-    This is the fast entry for consumers whose upstream already holds
-    frames (chunked streaming, sharded pipelines): the flat entry pays
-    an XLA 1-D -> 2-D tiling relayout into the frame view that Mosaic
-    cannot absorb — measured ~18% of the config-5 row (BASELINE.md PFB
-    bullet / r5 kernel-table rows: 0.163 ms frames-fed vs 0.199 flat).
+    This is the entry for consumers whose upstream already holds
+    frames (chunked streaming, sharded pipelines): it skips the flat
+    entry's 1-D -> 2-D reshape into the frame view.
     """
     xc = as_complex_array(x)
     if xc.real.ndim < 2 or xc.real.shape[-1] != channels:
@@ -153,19 +130,8 @@ def pfb_channelize_frames(x, channels: int, taps=None,
     if taps is None:
         taps = pfb_taps(channels, taps_per_branch)
     taps = jnp.asarray(taps)
-    from ..core.complex import is_power_of_two
-    from .dispatch import get_fft_impl
-
-    if (channels >= 128 and is_power_of_two(channels)
-            and jax.default_backend() == "tpu"
-            and xc.real.dtype == jnp.float32
-            and get_fft_impl() in ("auto", "pallas")):
-        from .pfb_pallas import pfb_channelize_frames_pallas
-
-        return pfb_channelize_frames_pallas(xc, taps, channels,
-                                            precision=precision)
     vr, vi = _branch_filter_frames(xc, taps, channels)
-    return _fft(ComplexArray(vr, vi), axis=-1, precision=precision)
+    return _fft(ComplexArray(vr, vi), axis=-1)
 
 
 class PfbState(NamedTuple):
@@ -227,9 +193,7 @@ def pfb_channelize_frames_step(state: PfbFramesState, chunk_frames,
                                ) -> Tuple[PfbFramesState, ComplexArray]:
     """Chunked channelizer over (Mc, C) frame chunks, matching the batch
     ``pfb_channelize_frames`` result — the whole streaming loop stays in
-    the frame view, so the fused kernel's fast (no-relayout) path is hit
-    every step (round-4 VERDICT #2: the chunked streaming interface must
-    not re-flatten its tail).
+    the frame view and never re-flattens its tail.
     """
     xc = as_complex_array(chunk_frames)
     if xc.real.ndim < 2 or xc.real.shape[-1] != channels:

@@ -1,28 +1,21 @@
-"""FFT implementation dispatch: pick the fastest correct path per backend.
+"""FFT implementation dispatch: the one place that picks a path per platform.
 
-Three interchangeable implementations, all locked to the numpy convention
-and validated against the same fixtures:
+Two interchangeable implementations, both locked to the numpy convention
+(forward unnormalised, inverse 1/N) and validated against the same
+fixtures:
 
-* ``stockham`` — pure jnp recursion (core/fft.py). Works on every
+* ``xla``      — ``jnp.fft`` on complex64/complex128 (cuFFT on the GPU).
+  The split planes are joined into a complex array at the boundary and
+  split again on the way out.
+* ``stockham`` — pure jnp radix-2 recursion (core/fft.py). Works on every
   backend and dtype (incl. f64 on CPU); the correctness reference.
-* ``fourstep`` — jnp MXU formulation (ops/fft_fourstep.py). Fast on TPU,
-  several fused XLA kernels.
-* ``pallas``  — single fused kernel (ops/fft_pallas.py). Fastest on TPU
-  (~45 GS/s donated at N=1024 on v5e, ~88% of the complex HBM roofline);
-  interpreter mode elsewhere.
 
-Default policy: pallas on TPU for f32/bf16 power-of-two sizes > 128,
-fourstep for smaller TPU transforms (they are a single matmul anyway),
-stockham otherwise. Override globally with :func:`set_fft_impl` or
-per call via ``impl=``.
-
-Precision policy (pallas path only — the other impls are full f32):
-``precision="auto"`` (the default) resolves to **bf16x3** split-dot MXU
-passes on TPU — SNR ~110 dB vs f64, comfortably above the 105 dB
-production gate, at ~half the MXU time of the 6-pass f32 HIGHEST dots —
-and to "highest" everywhere else. Pin "highest" (SNR ~140 dB) per call
-or globally with :func:`set_fft_precision` when bit-level headroom
-matters more than throughput.
+Policy (:func:`policy`): ``stockham`` on the CPU, so the f64 fixture
+tests keep comparing against the independent radix-2 reference; ``xla``
+on the GPU, where it beat ``stockham`` (and a dense-matmul four-step
+route, since removed) at every size measured (PERF.md, FFT routes).
+Any other platform raises. Override globally with :func:`set_fft_impl`
+or per call via ``impl=``.
 """
 
 from __future__ import annotations
@@ -34,17 +27,12 @@ import jax.numpy as jnp
 
 from ..core.complex import ComplexArray, as_complex_array, is_power_of_two
 from ..core.fft import fft as _fft_stockham, ifft as _ifft_stockham
-from .fft_fourstep import fft_fourstep, ifft_fourstep
-from .fft_pallas import fft_pallas, ifft_pallas
 
-__all__ = ["fft", "ifft", "set_fft_impl", "get_fft_impl",
-           "set_fft_precision", "get_fft_precision"]
+__all__ = ["fft", "ifft", "set_fft_impl", "get_fft_impl", "policy",
+           "fft_route"]
 
-_IMPLS = ("auto", "stockham", "fourstep", "pallas", "big")
+_IMPLS = ("auto", "xla", "stockham")
 _impl = "auto"
-
-_PRECISIONS = ("auto", "highest", "bf16x3")
-_precision = "auto"
 
 
 def set_fft_impl(impl: str) -> None:
@@ -59,140 +47,51 @@ def get_fft_impl() -> str:
     return _impl
 
 
-def set_fft_precision(precision: str) -> None:
-    """Globally select the pallas-path precision ('auto' restores policy:
-    bf16x3 on TPU, highest elsewhere)."""
-    global _precision
-    if precision not in _PRECISIONS:
-        raise ValueError(
-            f"unknown fft precision {precision!r}; choose from {_PRECISIONS}")
-    _precision = precision
-
-
-def get_fft_precision() -> str:
-    return _precision
-
-
-def _resolve(xc: ComplexArray, axis: int) -> str:
-    if _impl != "auto":
-        if _impl == "big" and not _big_supports(xc, axis):
-            # A globally pinned "big" must not break unrelated small
-            # transforms (e.g. dist_fft's internal n2-sized column FFTs):
-            # fall back to the auto policy for out-of-range sizes. A
-            # per-call impl="big" with a bad n raises instead (see fft()).
-            return _resolve_policy(xc, axis)
-        return _impl
-    return _resolve_policy(xc, axis)
-
-
-def _big_supports(xc: ComplexArray, axis: int) -> bool:
-    from .fft_big import MIN_BIG_N
-    from .fft_pallas import MAX_COLS_N, MAX_ROWS_N
-
-    n = xc.real.shape[axis]
-    return (is_power_of_two(n)
-            and MIN_BIG_N <= n <= MAX_COLS_N * MAX_ROWS_N)
-
-
-def _resolve_policy(xc: ComplexArray, axis: int) -> str:
-    if jax.default_backend() != "tpu":
+def policy(platform: str) -> str:
+    """The implementation 'auto' picks on ``platform`` (a
+    ``jax.default_backend()`` name)."""
+    if platform == "cpu":
         return "stockham"
-    if xc.real.dtype not in (jnp.float32, jnp.bfloat16):
-        return "stockham"
-    n = xc.real.shape[axis]
-    if not is_power_of_two(n) or n <= 128:
-        return "fourstep"
-    ax = axis % xc.real.ndim
-    if ax == xc.real.ndim - 1:
-        from .fft_pallas import MAX_COLS_N, MAX_ROWS_N
-        if n <= MAX_ROWS_N:
-            return "pallas"
-        from .fft_big import MIN_BIG_N
-        # fft_big covers n = n2b * n1b with n2b <= MAX_COLS_N and
-        # n1b <= MAX_ROWS_N; beyond that (n > 2^26) fall back to the
-        # recursive jnp fourstep rather than crash in big_split.
-        # Deliberate routing gap at n = 2^15 (32768): the row kernel
-        # tops out at MAX_ROWS_N = 2^14 and big_split needs both
-        # factors comfortably tiled (MIN_BIG_N = 2^16), so that single
-        # size rides the slower jnp fourstep.
-        if MIN_BIG_N <= n <= MAX_COLS_N * MAX_ROWS_N:
-            return "big"
-        return "fourstep"
-    if ax == xc.real.ndim - 2 and xc.real.ndim >= 2:
-        from .fft_pallas import MAX_COLS_N
-        # The column kernel pads the trailing dim to a 128-lane tile —
-        # fine for wide operands, degenerate for narrow ones (a (n, 1)
-        # array would do 128x dead work); keep those on fourstep.
-        if n <= MAX_COLS_N and xc.real.shape[-1] >= 128:
-            return "pallas"           # column kernel (fft_pallas axis=-2)
-    return "fourstep"
-
-
-def fft(x, axis: int = -1, impl: Optional[str] = None,
-        precision: Optional[str] = None, donate: bool = False
-        ) -> ComplexArray:
-    """Forward FFT (numpy convention, unnormalised) via the best backend path.
-
-    ``precision`` (None -> global policy | "auto" | "highest" | "bf16x3")
-    applies to the pallas path only (the other impls are already full-f32);
-    see the module docstring. ``donate`` aliases the input buffers to the
-    output on the pallas path (streaming loops; input must be dead after).
-    """
-    xc = as_complex_array(x)
-    chosen = impl if impl is not None else _resolve(xc, axis)
-    if chosen == "big" and impl is not None:
-        _require_big_range(xc, axis)
-    if chosen == "pallas":
-        return fft_pallas(xc, axis, precision=precision, donate=donate)
-    if chosen == "big":
-        return _run_big(xc, axis, False, precision, donate)
-    if chosen == "fourstep":
-        return fft_fourstep(xc, axis)
-    return _fft_stockham(xc, axis)
-
-
-def ifft(x, axis: int = -1, impl: Optional[str] = None,
-         precision: Optional[str] = None, donate: bool = False
-         ) -> ComplexArray:
-    """Inverse FFT with 1/N normalisation via the best backend path."""
-    xc = as_complex_array(x)
-    chosen = impl if impl is not None else _resolve(xc, axis)
-    if chosen == "big" and impl is not None:
-        _require_big_range(xc, axis)
-    if chosen == "pallas":
-        return ifft_pallas(xc, axis, precision=precision, donate=donate)
-    if chosen == "big":
-        return _run_big(xc, axis, True, precision, donate)
-    if chosen == "fourstep":
-        return ifft_fourstep(xc, axis)
-    return _ifft_stockham(xc, axis)
-
-
-def _require_big_range(xc: ComplexArray, axis: int) -> None:
-    """Clear error for an explicit per-call impl='big' with unsupported n."""
-    if _big_supports(xc, axis):
-        return
-    from .fft_big import MIN_BIG_N
-    from .fft_pallas import MAX_COLS_N, MAX_ROWS_N
-
-    n = xc.real.shape[axis]
+    if platform == "gpu":
+        return "xla"
     raise ValueError(
-        f"impl='big' supports power-of-two n in "
-        f"[{MIN_BIG_N}, {MAX_COLS_N * MAX_ROWS_N}]; got n={n}. "
-        "Use impl=None (auto policy) to route this size automatically.")
+        f"no FFT policy for platform {platform!r}; known: 'cpu', 'gpu'")
 
 
-def _run_big(xc: ComplexArray, axis: int, inverse: bool,
-             precision: Optional[str], donate: bool) -> ComplexArray:
-    """Natural-order fft_big over any axis (moveaxis off the last axis)."""
-    from .fft_big import fft_big, ifft_big
+def fft_route() -> str:
+    """The implementation :func:`fft` uses now (global override or the
+    policy for the default backend)."""
+    return _impl if _impl != "auto" else policy(jax.default_backend())
 
-    f = ifft_big if inverse else fft_big
-    ax = axis % xc.real.ndim
-    if ax == xc.real.ndim - 1:
-        return f(xc, precision=precision, donate=donate)
-    v = ComplexArray(jnp.moveaxis(xc.real, axis, -1),
-                     jnp.moveaxis(xc.imag, axis, -1))
-    o = f(v, precision=precision, donate=donate)
-    return ComplexArray(jnp.moveaxis(o.real, -1, ax),
-                        jnp.moveaxis(o.imag, -1, ax))
+
+def _xla(xc: ComplexArray, axis: int, inverse: bool) -> ComplexArray:
+    dtype = xc.real.dtype
+    # jnp.fft needs complex64/complex128; bf16 rides f32 and casts back.
+    wide = dtype if dtype in (jnp.float32, jnp.float64) else jnp.float32
+    z = jax.lax.complex(xc.real.astype(wide), xc.imag.astype(wide))
+    out = jnp.fft.ifft(z, axis=axis) if inverse else jnp.fft.fft(z, axis=axis)
+    return ComplexArray(jnp.real(out).astype(dtype),
+                        jnp.imag(out).astype(dtype))
+
+
+def _run(x, axis: int, impl: Optional[str], inverse: bool) -> ComplexArray:
+    xc = as_complex_array(x)
+    n = xc.real.shape[axis]
+    if not is_power_of_two(n):
+        raise ValueError(f"FFT size must be power of two, got {n}")
+    chosen = impl if impl is not None else fft_route()
+    if chosen == "xla":
+        return _xla(xc, axis, inverse)
+    if chosen == "stockham":
+        return (_ifft_stockham if inverse else _fft_stockham)(xc, axis)
+    raise ValueError(f"unknown fft impl {chosen!r}; choose from {_IMPLS[1:]}")
+
+
+def fft(x, axis: int = -1, impl: Optional[str] = None) -> ComplexArray:
+    """Forward FFT (numpy convention, unnormalised) via the chosen path."""
+    return _run(x, axis, impl, inverse=False)
+
+
+def ifft(x, axis: int = -1, impl: Optional[str] = None) -> ComplexArray:
+    """Inverse FFT with 1/N normalisation via the chosen path."""
+    return _run(x, axis, impl, inverse=True)

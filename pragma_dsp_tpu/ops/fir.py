@@ -1,11 +1,10 @@
-"""FIR filtering: direct (XLA conv / MXU) and overlap-save (FFT) paths.
+"""FIR filtering: direct (XLA conv) and overlap-save (FFT) paths.
 
 Semantics are scipy.signal.lfilter(taps, 1, x): causal, zero initial
 state, y[n] = sum_k h[k] x[n-k]. Batched over leading axes.
 
-The overlap-save path reuses the zero-transpose Pallas FFT pipeline
-(fft permuted -> pointwise multiply by the filter spectrum stored in the
-same permuted order -> ifft back to natural), which is the TPU-native
+The overlap-save path (block FFT -> pointwise multiply by the filter
+spectrum -> inverse FFT, through ops.dispatch) is the batched
 replacement for streaming per-sample convolution (SURVEY.md §2b).
 
 Streaming: ``FirState`` carries the last K-1 input samples so chunked
@@ -14,23 +13,22 @@ filtering matches the batch result exactly (jit/scan-compatible).
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..core.complex import (Array, ComplexArray, as_complex_array,
-                            ensure_float, next_power_of_two)
-from .dispatch import fft as _fft, get_fft_impl, ifft as _ifft
+from ..core.complex import (Array, ComplexArray, ensure_float,
+                            is_power_of_two, next_power_of_two)
+from .dispatch import fft as _fft, ifft as _ifft
 
 __all__ = ["fir_filter", "FirState", "fir_stream_init", "fir_step",
            "overlap_save_filter"]
 
 
 def _conv_causal(x: Array, taps: Array) -> Array:
-    """Causal FIR via XLA conv (lowers to MXU-friendly windows on TPU)."""
+    """Causal FIR via XLA conv."""
     k = taps.shape[0]
     batch_shape = x.shape[:-1]
     length = x.shape[-1]
@@ -45,25 +43,21 @@ def _conv_causal(x: Array, taps: Array) -> Array:
     return y.reshape(batch_shape + (length,))
 
 
-def fir_filter(x, taps, method: str = "auto",
-               precision: Optional[str] = None) -> Array:
+def fir_filter(x, taps, method: str = "auto") -> Array:
     """Apply a real FIR filter causally along the last axis.
 
     method: 'direct' (XLA conv), 'overlap_save' (FFT blocks), or 'auto'
     (overlap-save once the tap count makes FFT cheaper).
     Complex input is filtered per plane (taps are real).
-    precision: 'highest' (f32 MXU dots) or 'bf16x3' (split-bf16 FFT
-    dots, ~105 dB SNR, ~1.8x on the overlap-save path; ignored by the
-    direct conv).
     """
     taps = jnp.asarray(taps)
     if isinstance(x, ComplexArray):
-        return ComplexArray(fir_filter(x.real, taps, method, precision),
-                            fir_filter(x.imag, taps, method, precision))
+        return ComplexArray(fir_filter(x.real, taps, method),
+                            fir_filter(x.imag, taps, method))
     x = jnp.asarray(x)
     if jnp.iscomplexobj(x):
-        return ComplexArray(fir_filter(x.real, taps, method, precision),
-                            fir_filter(x.imag, taps, method, precision))
+        return ComplexArray(fir_filter(x.real, taps, method),
+                            fir_filter(x.imag, taps, method))
     x = ensure_float(x)     # int input would cast the taps to int below
     k = taps.shape[0]
     if method == "auto":
@@ -71,13 +65,12 @@ def fir_filter(x, taps, method: str = "auto",
     if method == "direct":
         return _conv_causal(x, taps)
     if method == "overlap_save":
-        return overlap_save_filter(x, taps, precision=precision)
+        return overlap_save_filter(x, taps)
     raise ValueError(f"unknown FIR method: {method}")
 
 
 def overlap_save_filter(x: Array, taps: Array,
-                        block: Optional[int] = None,
-                        precision: Optional[str] = None) -> Array:
+                        block: Optional[int] = None) -> Array:
     """Causal FIR via overlap-save FFT blocks (lfilter-equivalent).
 
     Each length-N block consumes N - (K-1) fresh samples and carries the
@@ -95,26 +88,13 @@ def overlap_save_filter(x: Array, taps: Array,
         # hop-sized row, which requires hop = n - overlap >= overlap.
         raise ValueError(
             f"overlap-save block {n} must be >= 2*(len(taps)-1) = {2 * (k - 1)}")
-    # Respect the global impl override (set_fft_impl) so the pallas
-    # pipeline — incl. its bf16x3 mode — is exercisable off-TPU in
-    # interpret mode; default policy mirrors ops/dispatch._resolve.
-    from ..core.complex import is_power_of_two
     if not is_power_of_two(n):
         raise ValueError(
             f"overlap-save block size must be a power of two, got {n} "
             "(every FFT impl in this package is radix-2; pass block=None "
             "for the automatic choice)")
-    impl = get_fft_impl()
-    use_pallas = n > 128 and (
-        impl == "pallas"
-        or (impl == "auto" and jax.default_backend() == "tpu"))
-    # Overlap o >= K-1 samples are dropped per block. On the fused-kernel
-    # path o rounds up to a lane multiple (128) so the per-block valid
-    # region [o, n) is a lane-aligned free slice (the extra o-(K-1)
-    # dropped samples are valid duplicates of the previous block).
-    # pow-2 n > 128 with n >= 2(K-1) guarantees the rounded o <= n/2.
-    from .fft_pallas import LANES
-    o = -(-(k - 1) // LANES) * LANES if use_pallas else k - 1
+    # The first o = K-1 samples of each block are the dropped overlap.
+    o = k - 1
     hop = n - o
     n_blocks = -(-length // hop)
 
@@ -125,7 +105,7 @@ def overlap_save_filter(x: Array, taps: Array,
 
     # Frames of length n starting every hop samples: consecutive frames
     # share the o-sample overlap. Built from reshape + row-shifted slices
-    # (an index gather here measured ~70x slower on v5e than the FFTs).
+    # instead of an index gather.
     body = xp[..., : n_blocks * hop]
     rows = body.reshape(body.shape[:-1] + (n_blocks, hop))
     nxt = jnp.concatenate(
@@ -134,26 +114,12 @@ def overlap_save_filter(x: Array, taps: Array,
     frames = jnp.concatenate([rows, nxt], axis=-1)   # [..., n_blocks, n]
 
     h = jnp.zeros((n,), dtype=x.dtype).at[:k].set(taps)
-    if use_pallas:
-        # One fused kernel: fft -> xH -> ifft entirely in VMEM, with the
-        # filter spectrum held in digit-permuted order (zero transposes,
-        # zero intermediate HBM traffic — ops/conv_pallas.py).
-        from .conv_pallas import circular_convolve_pallas
-        from .fft_pallas import fft_pallas_permuted
-        hspec = fft_pallas_permuted(ComplexArray(h, jnp.zeros_like(h)),
-                                    precision=precision)
-        # frames is freshly built above and dead after the kernel — alias
-        # its HBM buffer to the output (saves a full-array copy when the
-        # result feeds a loop carry).
-        y = circular_convolve_pallas(frames, hspec, n, precision=precision,
-                                     donate=True)
-    else:
-        hspec = _fft(h)
-        fspec = _fft(frames)
-        prod_re = fspec.real * hspec.real - fspec.imag * hspec.imag
-        prod_im = fspec.real * hspec.imag + fspec.imag * hspec.real
-        y = _ifft(ComplexArray(prod_re, prod_im)).real
-    # First o samples of each block are circular garbage (or duplicates).
+    hspec = _fft(h)
+    fspec = _fft(frames)
+    prod_re = fspec.real * hspec.real - fspec.imag * hspec.imag
+    prod_im = fspec.real * hspec.imag + fspec.imag * hspec.real
+    y = _ifft(ComplexArray(prod_re, prod_im)).real
+    # First o samples of each block are circular garbage.
     y = y[..., o:]
     y = y.reshape(y.shape[:-2] + (n_blocks * hop,))
     return y[..., :length]

@@ -4,7 +4,7 @@ interpolator.
 Semantics are scipy.signal.upfirdn(h, x, up, down): upsample by ``up``
 (zero insertion), filter with ``h`` (full convolution), downsample by
 ``down``. On the hot path the polyphase structure is compiled to a
-single MXU matmul: one cycle of ``up`` outputs is a dot of the
+single matmul: one cycle of ``up`` outputs is a dot of the
 ``down + ceil(K/up) - 1`` input samples around the cycle base with a
 constant banded tap matrix (see ``_upfirdn_banded``) — the hardware-
 native equivalent of a polyphase filterbank (BASELINE.json config 3).
@@ -83,25 +83,22 @@ def _upfirdn_conv(x: Array, h: Array, up: int, down: int) -> Array:
 
 def _upfirdn_banded(x: Array, h: Array, up: int, down: int,
                     precision: Optional[str] = None) -> Array:
-    """upfirdn as one MXU matmul against a banded per-phase tap matrix.
+    """upfirdn as one matmul against a banded per-phase tap matrix.
 
     y[m] = Σ_q h[p + up*q] * x[b - q] with p = (m*down) mod up and
     b = floor(m*down/up); grouping outputs by polyphase cycle
     (m = s*up + r) makes each cycle of ``up`` outputs a dot of the
     ``W = down + Q - 1`` input samples around x[s*down] with a constant
     (W, up) matrix. One reshape + T row-shifted concats build the frames
-    — XLA's dilated-conv lowering of the same computation measured
-    ~500x slower on v5e (320 ms -> 0.6 ms for config 3's 4.2M-sample
-    48k->44.1k resample).
+    (XLA's dilated-conv lowering of the same computation is the fallback
+    for traced taps; its speed on the H100 is not measured).
 
-    ``precision`` follows the framework policy (ops.dispatch
-    set_fft_precision / fft_pallas.resolve_precision): "bf16x3" runs the
-    banded matmul as three DEFAULT bf16 passes on hi/lo-split operands
-    (taps pre-split at trace time) — ~2x the MXU throughput of the
-    6-pass f32 HIGHEST dot at ~110 dB SNR; "highest" (the CPU default)
+    ``precision`` (ops/precision.py): "bf16x3" runs the banded matmul as
+    three bf16 passes on hi/lo-split operands (taps pre-split at trace
+    time) with f32 accumulation, ~110 dB SNR; "highest" (the default)
     keeps the f32 HIGHEST einsum.
     """
-    from .fft_pallas import _bsplit, _np_bsplit, resolve_precision
+    from .precision import _bsplit, _np_bsplit, resolve_precision
 
     prec = resolve_precision(precision)
     hh = np.asarray(h, dtype=np.float64)    # static taps (caller-checked)
@@ -111,12 +108,11 @@ def _upfirdn_banded(x: Array, h: Array, up: int, down: int,
     halo = q_taps - 1                        # left history per cycle
     out_len = -(-((length - 1) * up + k) // down)
     # Cycle grouping: one polyphase cycle emits ``up`` outputs, so for
-    # small ``up`` a per-cycle dot starves the 128-lane MXU — pure
-    # decimation (up=1) degenerates to a (W, 1) matvec that measured
-    # ~30 ms for the WBFM channel filter (bench/wbfmprobe.py). Grouping
-    # C cycles per frame makes each dot emit up*C ~ 128 outputs at the
-    # cost of a (down*C + halo)-wide frame; identical arithmetic, just
-    # a blocked matrix.
+    # small ``up`` a per-cycle dot is a thin matvec — pure decimation
+    # (up=1) degenerates to (W, 1). Grouping C cycles per frame makes
+    # each dot emit up*C ~ 128 outputs at the cost of a
+    # (down*C + halo)-wide frame; identical arithmetic, just a blocked
+    # matrix.
     cyc = max(1, -(-128 // up))
     upc = up * cyc
     stride = down * cyc
@@ -179,9 +175,8 @@ def upfirdn(x, h, up: int = 1, down: int = 1,
 
     Real or complex (split-plane) input; ``h`` is real. Concrete taps
     (numpy or non-traced) take the banded-matmul path; traced taps fall
-    back to the dilated-conv lowering. ``precision`` = None follows the
-    framework policy (bf16x3 split dots on TPU, f32 HIGHEST elsewhere);
-    pass "highest"/"bf16x3" to pin.
+    back to the dilated-conv lowering. ``precision`` = None means
+    "highest" (f32 dots); pass "bf16x3" for the split-bf16 dots.
     """
     if isinstance(x, ComplexArray):
         return ComplexArray(_upfirdn_real(x.real, h, up, down, precision),
@@ -238,16 +233,13 @@ def resample_poly_cascade(x, factors, taps=None, taps_per_phase: int = 8,
 
     e.g. 48 kHz -> 44.1 kHz as (3, 4)·(7, 8)·(7, 5) = 147/160.
 
-    Round-4 VERDICT #4 A/B (measured on v5e, recorded in BASELINE.md
-    config-3 bullet and re-run by ``bench/kernels.py --floors``): the
-    cascade LOSES to the single-stage banded einsum on TPU — each stage
-    pays its full dense (w_frame, up*cyc) band regardless of ratio, so
-    splitting the ratio multiplies band traffic instead of reducing it
-    (the dense-band MAC count per input sample is ~2x the single
-    stage's), and the measured times confirm it. Shipped as a public
-    building block (cascades are the standard CPU-DSP escape from
-    awkward ratios, and multi-rate chains compose from it), but
-    ``resample_poly`` remains the config-3 fast path.
+    Each stage pays its full dense (w_frame, up*cyc) band regardless of
+    ratio, so splitting the ratio multiplies band work instead of
+    reducing it (the dense-band MAC count per input sample is ~2x the
+    single stage's). Shipped as a public building block (cascades are
+    the standard CPU-DSP escape from awkward ratios, and multi-rate
+    chains compose from it), but ``resample_poly`` remains the config-3
+    path; the two are not timed against each other on the H100.
 
     ``taps`` (optional) is a list of per-stage tap arrays overriding
     the default designs.
@@ -262,7 +254,7 @@ class UpfirdnState(NamedTuple):
     """Streaming upfirdn carry: the last ``history`` input samples.
 
     A NamedTuple pytree — threads through jit / lax.scan and can be
-    donated (the TPU analogue of the reference expert rung's out-buffer
+    donated (the analogue of the reference expert rung's out-buffer
     reuse, src/core/fft.ts:89-106).
     """
 

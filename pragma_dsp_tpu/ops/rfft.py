@@ -3,13 +3,9 @@
 The classic two-for-one trick, exact: even/odd time samples packed into
 one half-size complex transform, untangled with conjugate symmetry +
 twiddles (X[k] = E[k] + W_N^k O[k]). Matches numpy.fft.rfft bins
-[0..N/2]. The sibling trick — two REAL frames packed as real/imag of
-one complex frame — lives where it has a real consumer: the fused
-overlap-save convolution kernel pairs batch halves in-kernel
-(ops/conv_pallas.py _osconv_pair_kernel), halving MXU work per sample.
+[0..N/2].
 
-The complex core runs through ops.dispatch, so on TPU it is the fused
-Pallas kernel.
+The complex core runs through ops.dispatch (cuFFT on the GPU).
 """
 
 from __future__ import annotations

@@ -8,7 +8,6 @@ from .dist_fft import (
     dist_fft,
     dist_fft_shape,
     dist_ifft,
-    optimal_chunks,
     permuted_to_natural_host,
 )
 from .mesh import Mesh, NamedSharding, P, data_mesh, make_mesh
@@ -34,7 +33,6 @@ __all__ = [
     "dist_fft",
     "dist_ifft",
     "dist_fft_shape",
-    "optimal_chunks",
     "permuted_to_natural_host",
     "sharded_channel_power",
     "sharded_fir_filter",

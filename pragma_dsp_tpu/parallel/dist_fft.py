@@ -1,15 +1,15 @@
 """Distributed four-step FFT over a device mesh (the 1M-point path).
 
-The same Bailey decomposition the Pallas kernel uses per chip
-(ops/fft_pallas.py) applied across chips: view x as (N2, N1) with the
-n1 axis sharded; the column sub-DFT is device-local, the digit-swap
-corner turn becomes a tiled `all_to_all` over the mesh axis, and the
-row sub-DFT is local again. The long-context/sequence-parallel analogue
+The Bailey four-step decomposition X[k2 + N2*k1] =
+DFT_N1(W_N^(n1*k2) * DFT_N2(x[n1 + N1*n2])) applied across devices:
+view x as (N2, N1) with the n1 axis sharded; the column sub-DFT is
+device-local, the digit-swap corner turn becomes a tiled `all_to_all`
+over the mesh axis, and the row sub-DFT is local again. The long-context/sequence-parallel analogue
 of SURVEY.md §5: the sequence (time) dimension is sharded and the only
 communication is the corner turn.
 
-Like the single-chip kernel, the forward emits digit-permuted bins
-(P[k2, k1] = X[k2 + N2*k1], k2 sharded) and the inverse consumes them —
+The forward emits digit-permuted bins (P[k2, k1] = X[k2 + N2*k1], k2
+sharded) and the inverse consumes them —
 a distributed fft -> pointwise -> ifft pipeline communicates exactly
 twice, and spectral postprocessing (scaling, peak-find) is layout-free.
 
@@ -18,7 +18,7 @@ corner turn dominates): the all_to_all is split into ``chunks`` pieces
 interleaved with the second local FFT — chunk c+1's collective has no
 data dependence on chunk c's sub-FFT, so XLA's latency-hiding scheduler
 can run the transfer behind the compute (async collective start/done
-pairs on a real pod; on the virtual CPU test mesh the chunked path is
+pairs on the GPU; on the virtual CPU test mesh the chunked path is
 exercised for correctness). Chunking slices the OUTPUT rows (forward) /
 output lanes (inverse) of the corner turn, so the pieces concatenate
 back in natural order with no extra permutation.
@@ -26,8 +26,7 @@ back in natural order with no extra permutation.
 Batch dims: input may carry leading batch axes ([..., N2, N1]); the
 transform and the corner turn run over the trailing two axes.
 
-Local sub-FFTs go through ops.dispatch, so on TPU they are themselves
-the fused Pallas kernels.
+Local sub-FFTs go through ops.dispatch (cuFFT on the GPU).
 """
 
 from __future__ import annotations
@@ -38,15 +37,14 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from ..core.complex import ComplexArray, as_complex_array, is_power_of_two
 from ..ops.dispatch import fft as _fft, ifft as _ifft
-from ..ops.fft_fourstep import _twiddle_grid
 
 __all__ = ["dist_fft", "dist_ifft", "dist_fft_shape",
-           "optimal_chunks", "permuted_to_natural_host"]
+           "permuted_to_natural_host"]
 
 
 def dist_fft_shape(n: int, n_devices: int) -> Tuple[int, int]:
@@ -65,23 +63,39 @@ def dist_fft_shape(n: int, n_devices: int) -> Tuple[int, int]:
     return n2, n1
 
 
-def _twiddles_fwd(n, n2, n1, sign, dtype):
-    """Twiddle tables as NUMPY arrays: _build_dist_fft's closure is
-    lru-cached, and a jnp constant materialised while tracing (e.g. the
-    first dist_fft call happening inside a user's jit) would be a
-    trace-local tracer that leaks into every later call
-    (UnexpectedTracerError). numpy values lift to fresh constants in
-    whichever trace uses them."""
-    tc, ts = _twiddle_grid(n, n2, n1, sign)   # (k2, n1)
+def _twiddle_factors(n: int, n2: int, n1: int, sign: float, lo: int,
+                     dtype) -> Tuple[np.ndarray, ...]:
+    """W_N^(k2*n1) = A[k2, h] * B[k2, l] for n1 = h*lo + l: the (k2, n1)
+    twiddle table as two small factors, (n2, n1/lo) and (n2, lo), each
+    (cos, sin) from float64 and cast once. The full table as a constant
+    was embedded in every compiled program (512 MiB at N = 2^26, about a
+    minute to compile each variant on an H100); the factors are a few
+    MiB, and the product costs one complex multiply per element, which
+    XLA fuses into the twiddle stage (~2 f32 ulp). NUMPY arrays:
+    _build_dist_fft is lru-cached and its first call may happen inside a
+    user's jit, where a jnp constant would be a trace-local tracer that
+    leaks into every later call (UnexpectedTracerError)."""
+    k2 = np.arange(n2, dtype=np.float64)[:, None]
+    a = sign * 2.0 * np.pi * k2 * (np.arange(n1 // lo) * lo)[None, :] / n
+    b = sign * 2.0 * np.pi * k2 * np.arange(lo)[None, :] / n
     npdt = np.dtype(str(dtype))
-    return np.asarray(tc, npdt), np.asarray(ts, npdt)
+    return tuple(np.asarray(t, npdt) for t in
+                 (np.cos(a), np.sin(a), np.cos(b), np.sin(b)))
+
+
+def _twiddle_table(ac, as_, bc, bs):
+    """Expand the factors of :func:`_twiddle_factors` (rows already
+    sliced to this device) into the (rows, n1) cos and sin tables."""
+    rows = ac.shape[0]
+    tc = ac[:, :, None] * bc[:, None, :] - as_[:, :, None] * bs[:, None, :]
+    ts = ac[:, :, None] * bs[:, None, :] + as_[:, :, None] * bc[:, None, :]
+    return tc.reshape(rows, -1), ts.reshape(rows, -1)
 
 
 @functools.lru_cache(maxsize=128)
 def _build_dist_fft(mesh: Mesh, axis: str, n2: int, n1: int, nd: int,
                     dtype_name: str, inverse: bool, chunks: int,
-                    batch_axis: Optional[str] = None,
-                    cols_fold: bool = False):
+                    batch_axis: Optional[str] = None):
     """Build + jit the shard_map'd transform once per static signature,
     so repeated dist_fft calls hit the compilation cache instead of
     retracing (shard_map closures are not cached by identity).
@@ -96,7 +110,10 @@ def _build_dist_fft(mesh: Mesh, axis: str, n2: int, n1: int, nd: int,
     d = mesh.shape[axis]
     sign = 1.0 if inverse else -1.0
     dtype = _jnp.dtype(dtype_name)
-    tc_full, ts_full = _twiddles_fwd(n, n2, n1, sign, dtype)
+    # n1 = h*lo + l with lo | n1/d, so a device's n1 columns are whole
+    # h-blocks of the A factor (forward) and its k2 rows slice both.
+    lo = min(1 << (n1.bit_length() - 1) // 2, n1 // d)
+    ac, as_, bc, bs = _twiddle_factors(n, n2, n1, sign, lo, dtype)
     lead = [None] * (nd - 2)
     if batch_axis is not None:
         lead[0] = batch_axis
@@ -113,15 +130,13 @@ def _build_dist_fft(mesh: Mesh, axis: str, n2: int, n1: int, nd: int,
             b = pr.shape[:-2]
             nb = len(b)
             # 1. local DFT+ over k1 with 1/N1 (full rows of the k2-shard).
-            # donate: the permuted input planes die here; on the pallas
-            # path this avoids a full-array copy when the caller's loop
-            # carries the transform output.
-            o = _ifft(ComplexArray(pr, pi), axis=-1, donate=True)
+            o = _ifft(ComplexArray(pr, pi), axis=-1)
             rr, ii = o.real, o.imag
             # 2. twiddle W^(+n1*k2) for this device's k2 rows.
             k2_off = jax.lax.axis_index(axis) * (n2 // d)
-            tc = jax.lax.dynamic_slice_in_dim(tc_full, k2_off, n2 // d, 0)
-            ts = jax.lax.dynamic_slice_in_dim(ts_full, k2_off, n2 // d, 0)
+            tc, ts = _twiddle_table(*(
+                jax.lax.dynamic_slice_in_dim(t, k2_off, n2 // d, 0)
+                for t in (ac, as_, bc, bs)))
             tr = rr * tc - ii * ts
             ti = rr * ts + ii * tc
             # 3+4. chunked corner turn (n2/D, n1) -> (n2, n1/D) over
@@ -148,49 +163,20 @@ def _build_dist_fft(mesh: Mesh, axis: str, n2: int, n1: int, nd: int,
         in_spec = (P(*lead, None, axis), P(*lead, None, axis))
         out_spec = (P(*lead, axis, None), P(*lead, axis, None))
 
-        # Steps 1+2 fused: when the column kernel covers n2, the
-        # inter-stage twiddle W^(n1*k2) rides its output store as a
-        # fold grid (ops/fft_pallas.py) in the kernel's permuted
-        # sublane layout — fft_big's grid builder emits exactly that
-        # layout — and one sublane restore replaces the separate
-        # twiddle multiply. Measured NEUTRAL on one chip (0.076 ->
-        # 0.074 ms at 1M points: XLA already fused the elementwise
-        # twiddle into the restore transpose); kept because it pins the
-        # operation order the 105 dB gate measures and exercises the
-        # fold contract under shard_map. The decision is made by the
-        # caller (dist_fft) so it participates in this builder's cache
-        # key.
-        use_cols_fold = cols_fold
-        if use_cols_fold:
-            from ..ops.fft_big import _interstage_grids
-            gc_full, gs_full = _interstage_grids(n2, n1, sign)
-
         def body_fixed(xr, xi):
             b = xr.shape[:-2]
             nb = len(b)
-            n1_off = jax.lax.axis_index(axis) * (n1 // d)
-            if use_cols_fold:
-                from ..ops.fft_pallas import (cols_permuted_to_natural,
-                                              fft_pallas_cols_permuted)
-                gc = jax.lax.dynamic_slice_in_dim(
-                    _jnp.asarray(gc_full), n1_off, n1 // d, 1)
-                gs = jax.lax.dynamic_slice_in_dim(
-                    _jnp.asarray(gs_full), n1_off, n1 // d, 1)
-                o = fft_pallas_cols_permuted(ComplexArray(xr, xi),
-                                             fold_grids=(gc, gs))
-                tr = cols_permuted_to_natural(o.real, n2)
-                ti = cols_permuted_to_natural(o.imag, n2)
-            else:
-                # 1. local DFT over n2 (full columns of the n1-shard).
-                o = _fft(ComplexArray(xr, xi), axis=-2)
-                rr, ii = o.real, o.imag        # (..., k2, n1_local)
-                # 2. twiddle W^(n1*k2), n1 columns of this device.
-                tc = jax.lax.dynamic_slice_in_dim(tc_full, n1_off,
-                                                  n1 // d, 1)
-                ts = jax.lax.dynamic_slice_in_dim(ts_full, n1_off,
-                                                  n1 // d, 1)
-                tr = rr * tc - ii * ts
-                ti = rr * ts + ii * tc
+            # 1. local DFT over n2 (full columns of the n1-shard).
+            o = _fft(ComplexArray(xr, xi), axis=-2)
+            rr, ii = o.real, o.imag            # (..., k2, n1_local)
+            # 2. twiddle W^(n1*k2), n1 columns of this device.
+            h_off = jax.lax.axis_index(axis) * (n1 // d // lo)
+            tc, ts = _twiddle_table(
+                jax.lax.dynamic_slice_in_dim(ac, h_off, n1 // d // lo, 1),
+                jax.lax.dynamic_slice_in_dim(as_, h_off, n1 // d // lo, 1),
+                bc, bs)
+            tr = rr * tc - ii * ts
+            ti = rr * ts + ii * tc
             # 3+4. chunked corner turn (n2, n1/D) -> (n2/D, n1) over
             # output-row chunks, interleaved with the local row DFTs:
             # chunk c+1's all_to_all is independent of chunk c's FFT, so
@@ -208,7 +194,7 @@ def _build_dist_fft(mesh: Mesh, axis: str, n2: int, n1: int, nd: int,
                     b + (d * w, loc))
                 ar = a2a(sr, nb, nb + 1)       # -> (..., w, n1)
                 ai = a2a(si, nb, nb + 1)
-                oc = _fft(ComplexArray(ar, ai), axis=-1, donate=True)
+                oc = _fft(ComplexArray(ar, ai), axis=-1)
                 outs_r.append(oc.real)
                 outs_i.append(oc.imag)
             if chunks == 1:
@@ -220,54 +206,8 @@ def _build_dist_fft(mesh: Mesh, axis: str, n2: int, n1: int, nd: int,
                              out_specs=out_spec, check_vma=False))
 
 
-# ── overlap-depth model (round-4 VERDICT #6: depth derived from the
-# t_comm/t_fft2 model, not hardwired) ──
-#
-# With the turn split into C chunks pipelined against the second local
-# FFT, total ≈ max(t_comm, t_fft2) + min(t_comm, t_fft2)/C + C·o where
-# o is the per-chunk compute-side overhead (slice + separate FFT
-# dispatch + concat — measured on the 1-device mesh, where the a2a is
-# degenerate and ONLY the overhead remains: bench/scaling_model.py
-# --measure-overhead writes the curve into BASELINE.md). Minimising in
-# C gives C* = sqrt(min(t_comm, t_fft2) / o), rounded to the nearest
-# power of two that divides the chunked extent, capped at 8.
-_A2A_BW = 4 * 4.5e10 / (12 / 7)   # v5e a2a eff. B/s/chip (scaling model)
-_FFT2_RATE = 45e9                 # complex samples/s, local row FFT (v5e)
-_CHUNK_OVERHEAD_S = 2.2e-6        # per-chunk cost, measured 1-dev
-                                  # curve (BASELINE r5: 67.6/72.1/
-                                  # 72.8/69.4 us at C=1/2/4/8)
-
-
-def optimal_chunks(n2: int, n1: int, d: int, inverse: bool = False,
-                   a2a_bw: float = _A2A_BW,
-                   fft_rate: float = _FFT2_RATE,
-                   overhead_s: float = _CHUNK_OVERHEAD_S) -> int:
-    """Efficiency-optimal corner-turn overlap depth for an (n2, n1)
-    transform on d devices (model above; also consumed by
-    bench/scaling_model.py for the depth table in BASELINE.md)."""
-    extent = (n1 // d) if inverse else (n2 // d)
-    if d == 1:
-        return 1                  # no collective: depth is pure overhead
-    local = n2 * n1 // d
-    t_comm = 8.0 * local * (d - 1) / d / a2a_bw
-    t_fft2 = local / fft_rate
-    c_star = (min(t_comm, t_fft2) / overhead_s) ** 0.5
-    best = 1
-    c = 2
-    while c <= 8 and extent % c == 0 and extent // c >= 2:
-        # round to nearest power of two: take c while c <= c_star*sqrt(2)
-        if c <= c_star * 1.4142:
-            best = c
-        c *= 2
-    return best
-
-
-def _auto_chunks(n2: int, n1: int, d: int, inverse: bool) -> int:
-    return optimal_chunks(n2, n1, d, inverse)
-
-
 def dist_fft(x, mesh: Mesh, axis: str = "x", inverse: bool = False,
-             chunks: Optional[int] = None,
+             chunks: int = 1,
              batch_axis: Optional[str] = None) -> ComplexArray:
     """Distributed FFT of a [..., N2, N1] view of length N2*N1 signals.
 
@@ -279,13 +219,12 @@ def dist_fft(x, mesh: Mesh, axis: str = "x", inverse: bool = False,
 
     ``chunks`` controls comm/compute overlap: the corner-turn
     all_to_all is issued in that many pieces interleaved with the
-    second local FFT (None -> :func:`optimal_chunks`, the
-    t_comm/t_fft2-vs-overhead model; 1 on a 1-device mesh where depth
-    is pure overhead). chunks=1 is the monolithic round-2 behaviour.
+    second local FFT. The default 1 is the monolithic turn: on four
+    H100s at N = 2^26 it tied with 2 and beat 4 and 8 (PERF.md).
 
     ``batch_axis`` names a second mesh axis over which the OUTERMOST
     batch dim is sharded (dp over hosts while each transform shards
-    over ``axis``/ICI — the 2-D pod layout); requires a batch dim.
+    over ``axis`` — the 2-D multi-host layout); requires a batch dim.
     """
     xc = as_complex_array(x)
     n2, n1 = xc.real.shape[-2], xc.real.shape[-1]
@@ -304,30 +243,19 @@ def dist_fft(x, mesh: Mesh, axis: str = "x", inverse: bool = False,
             raise ValueError(
                 f"leading batch {xc.real.shape[0]} must divide by "
                 f"mesh axis {batch_axis!r} size {db}")
-    if chunks is None:
-        chunks = _auto_chunks(n2, n1, d, inverse)
     extent = (n1 // d) if inverse else (n2 // d)
     if extent % chunks != 0:
         raise ValueError(
             f"chunks={chunks} must divide the local corner-turn extent "
             f"{extent}")
-    from ..core.complex import is_power_of_two as _ispow2
-    from ..ops.dispatch import get_fft_impl as _impl
-    from ..ops.fft_pallas import MAX_COLS_N as _maxcols
-    cols_fold = (
-        not inverse and 128 < n2 <= _maxcols and _ispow2(n2)
-        and xc.real.dtype == jnp.float32
-        and (_impl() == "pallas"
-             or (_impl() == "auto" and jax.default_backend() == "tpu")))
     fn = _build_dist_fft(mesh, axis, n2, n1, xc.real.ndim,
-                         str(xc.real.dtype), inverse, chunks, batch_axis,
-                         cols_fold)
+                         str(xc.real.dtype), inverse, chunks, batch_axis)
     ore, oim = fn(xc.real, xc.imag)
     return ComplexArray(ore, oim)
 
 
 def dist_ifft(p, mesh: Mesh, axis: str = "x",
-              chunks: Optional[int] = None,
+              chunks: int = 1,
               batch_axis: Optional[str] = None) -> ComplexArray:
     """Inverse of :func:`dist_fft`: permuted k2-sharded in, natural
     n1-sharded out, 1/N normalised."""

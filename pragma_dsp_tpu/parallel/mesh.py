@@ -2,7 +2,7 @@
 
 All multi-chip code in this package takes a `jax.sharding.Mesh` and
 shards with `shard_map` + explicit collectives (ppermute halos,
-all_to_all corner turns) over ICI/DCN — the comms layer is entirely XLA
+all_to_all corner turns) — the comms layer is entirely XLA
 collectives (SURVEY.md §5: no custom transport).
 """
 

@@ -36,8 +36,8 @@ def init_multihost(coordinator_address: Optional[str] = None,
                    process_id: Optional[int] = None,
                    timeout_s: Optional[float] = 300.0) -> None:
     """jax.distributed.initialize with explicit or env-provided topology
-    (on Cloud TPU all args are auto-detected), then a watchdogged barrier
-    health check across all hosts."""
+    (pass all three on a machine with no cluster environment), then a
+    watchdogged barrier health check across all hosts."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["coordinator_address"] = coordinator_address

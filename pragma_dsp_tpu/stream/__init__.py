@@ -1,5 +1,5 @@
 """Streaming rung — caching service, streaming spectra, batched STFT
-(the TPU-native analogue of the reference's Effect side ladder)."""
+(the batched analogue of the reference's Effect side ladder)."""
 
 from .scan import jit_stream_step, scan_stream
 from .service import FourierService, default_service, spectrum_fx, spectrum_stream

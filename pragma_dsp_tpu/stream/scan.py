@@ -32,7 +32,7 @@ __all__ = ["jit_stream_step", "scan_stream"]
 
 def jit_stream_step(step: Callable, donate: bool = True, **static_kwargs):
     """Compile ``step(state, chunk, **static_kwargs)`` with the state
-    buffer donated (in-place carry update — the TPU analogue of the
+    buffer donated (in-place carry update — the analogue of the
     reference's out-buffer reuse).
 
     Returns a jitted ``(state, chunk) -> (new_state, out)``. Donation is

@@ -4,7 +4,7 @@ The reference wraps plan/window caching and streaming in Effect-TS
 (reference src/effect/index.ts:17-194): a ``Fourier`` service Tag, a
 ``FourierLive`` layer caching FFT instances by size and windows by
 "type:size", ``spectrumFx`` and ``spectrumStream``. There is no effect
-system here — the TPU-native equivalents are a plain caching service
+system here — the equivalents are a plain caching service
 object (JAX's jit cache already memoises compiled kernels; the service
 additionally memoises plan objects and window buffers) and Python
 iterators for streams. For real throughput use the batched
@@ -90,7 +90,7 @@ def spectrum_stream(frames: Iterable, *, service: Optional[FourierService] = Non
     """Lazily map spectrum_fx over an iterable of frames
     (reference spectrumStream, effect/index.ts:190-194).
 
-    For TPU throughput prefer stacking frames into a batch and calling
+    For throughput prefer stacking frames into a batch and calling
     ``spectrum`` once — per-frame iteration exists for API parity and
     interactive use.
     """

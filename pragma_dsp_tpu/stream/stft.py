@@ -1,6 +1,6 @@
 """Batched STFT / spectrogram + jit-friendly chunked streaming state.
 
-This is the TPU-native replacement for the reference's per-frame
+This is the batched replacement for the reference's per-frame
 ``spectrumStream`` (src/effect/index.ts:190-194): instead of mapping an
 effectful function over a stream of frames, the signal is framed into a
 [frames, n_fft] batch and the whole spectrogram is one fused jitted
@@ -47,9 +47,8 @@ def frame_signal(x: Array, frame_size: int, hop: int) -> Array:
         raise ValueError(f"signal length {length} < frame_size {frame_size}")
     n_frames = 1 + (length - frame_size) // hop
     # Reshape to hop-sized rows and concatenate T row-shifted views —
-    # frame i is rows i..i+T-1 truncated to frame_size. (An index gather
-    # here is the slow path on TPU: it materialises a [F, frame_size]
-    # gather instead of T cheap slices.)
+    # frame i is rows i..i+T-1 truncated to frame_size (T slices instead
+    # of a [F, frame_size] index gather).
     t_rows = -(-frame_size // hop)
     total = (n_frames + t_rows) * hop
     pad = [(0, 0)] * (x.ndim - 1) + [(0, total - length)]
@@ -117,109 +116,34 @@ def istft(spec: ComplexArray, hop: int, window: str = "hann",
     return sig
 
 
-# Above this many bytes of materialised overlap-expanded frames, the
-# spectrogram paths switch to the framed (signal-in) kernel: it is
-# measured slightly slower on v5e when frames fit (0.41 vs 0.35 ms at
-# config 2 — XLA's framing pass overlaps with the kernel while the
-# framed kernel pays in-VMEM sublane shifts), but it never allocates
-# the n/hop-fold frame expansion, which is what bounds how long a
-# signal one chip can process.
-_FRAMED_BYTES_THRESHOLD = 1 << 30
-
-
-def _use_framed(x, n_fft: int, hop: int, sides: str, framed) -> bool:
-    from ..ops.fft_pallas import framed_spectrum_supported
-
-    if not framed_spectrum_supported(n_fft, hop, sides):
-        if framed:
-            raise ValueError(
-                f"framed spectrogram kernel needs one-sided pow-2 "
-                f"n_fft > 128 with hop % 128 == 0 dividing n_fft; got "
-                f"n_fft={n_fft}, hop={hop}, sides={sides!r}")
-        return False
-    if framed is not None:
-        return framed
-    frames_bytes = (x.size // hop) * n_fft * x.dtype.itemsize
-    return frames_bytes > _FRAMED_BYTES_THRESHOLD
+def _scale(mags: Array, n_fft: int, sides: str) -> Array:
+    if sides == "one":
+        return scale_amplitude_one_sided(mags, n_fft)
+    return scale_amplitude_two_sided(mags, n_fft)
 
 
 def spectrogram_amplitude(x: Array, n_fft: int, hop: Optional[int] = None,
-                          window: str = "hann", sides: str = "one",
-                          framed: Optional[bool] = None) -> Array:
-    """Amplitude-only spectrogram on the fused fast path.
-
-    Skips phase/peak bookkeeping and runs framing -> window -> FFT ->
-    |X| -> scaling through the fused Pallas spectrum kernel — the
-    high-throughput choice when only magnitudes are needed (waterfalls,
-    detectors). Scaling matches spectrum() exactly. Returns
-    [..., F, bins].
-
-    ``framed`` picks the kernel input layout: False materialises
-    overlap-expanded frames (fastest when they fit — XLA's framing pass
-    overlaps with the kernel), True feeds the SIGNAL to the framed
-    kernel (ops.framed_spectrum_amplitude_pallas; ~1x signal HBM
-    traffic and no n/hop-fold frame allocation), None (default)
-    auto-selects framed only when the frame expansion would exceed
-    _FRAMED_BYTES_THRESHOLD. Both paths are bit-identical.
-    """
-    from ..ops.fft_pallas import (framed_spectrum_amplitude_pallas,
-                                  spectrum_amplitude_pallas)
-
+                          window: str = "hann", sides: str = "one") -> Array:
+    """Amplitude-only spectrogram: framing -> window -> FFT -> |X| ->
+    scaling, skipping the phase and peak bookkeeping of
+    :func:`spectrogram` (waterfalls, detectors). Scaling matches
+    spectrum() exactly. Returns [..., F, bins]."""
     hop = hop if hop is not None else n_fft // 4
-    x = ensure_float(x)
-    if x.shape[-1] < n_fft:
-        raise ValueError(
-            f"signal length {x.shape[-1]} < frame_size {n_fft}")
-    if _use_framed(x, n_fft, hop, sides, framed):
-        return framed_spectrum_amplitude_pallas(x, n_fft, hop, window)
-    frames = frame_signal(x, n_fft, hop)
-    return spectrum_amplitude_pallas(frames, n_fft, window, sides)
+    return _scale(magnitude(stft(x, n_fft, hop, window)), n_fft, sides)
 
 
 def spectrogram(x: Array, n_fft: int, hop: Optional[int] = None,
                 window: str = "hann", sample_rate: float = 1.0,
-                sides: str = "one",
-                framed: Optional[bool] = None) -> SpectrumResult:
+                sides: str = "one") -> SpectrumResult:
     """Spectrum-per-frame with the exact beginner-rung scaling and peak
     rules applied to every frame (batched spectrum over the frame axis).
-
-    On TPU the one-sided path runs the same fused amp+phase Pallas
-    kernel as the beginner rung (one HBM pass per frame batch instead of
-    FFT + hypot + atan2 + scaling); for magnitude-only workloads prefer
-    :func:`spectrogram_amplitude` (amplitude-only kernel, ~2x again).
-    ``framed`` as in :func:`spectrogram_amplitude`."""
-    from ..public.spectrum import _use_fused_one_sided
-
+    For magnitude-only workloads prefer :func:`spectrogram_amplitude`."""
     hop = hop if hop is not None else n_fft // 4
-    x = probe = ensure_float(x)
-    if _use_fused_one_sided(probe, n_fft, sides):
-        from ..ops.fft_pallas import (framed_spectrum_amp_phase_pallas,
-                                      spectrum_amp_phase_pallas)
-
-        if _use_framed(probe, n_fft, hop, sides, framed):
-            amplitude, phase_bins = framed_spectrum_amp_phase_pallas(
-                probe, n_fft, hop, window)
-        else:
-            frames = frame_signal(probe, n_fft, hop)
-            amplitude, phase_bins = spectrum_amp_phase_pallas(
-                frames, n_fft, window)
-        freqs = bin_frequencies(n_fft, sample_rate, sides,
-                                dtype=amplitude.dtype)
-        peak = find_peak(amplitude, freqs)
-        peak_phase = jnp.take_along_axis(phase_bins, peak.index[..., None],
-                                         axis=-1)[..., 0]
-        peak = peak._replace(phase=peak_phase)
-        return SpectrumResult(frequencies=freqs, amplitude=amplitude,
-                              phase=phase_bins, peak=peak)
     spec = stft(x, n_fft, hop, window)
-    mags = magnitude(spec)
-    angs = phase(spec)
+    amplitude = _scale(magnitude(spec), n_fft, sides)
+    phase_bins = phase(spec)
     if sides == "one":
-        amplitude = scale_amplitude_one_sided(mags, n_fft)
-        phase_bins = angs[..., : n_fft // 2 + 1]
-    else:
-        amplitude = scale_amplitude_two_sided(mags, n_fft)
-        phase_bins = angs
+        phase_bins = phase_bins[..., : n_fft // 2 + 1]
     freqs = bin_frequencies(n_fft, sample_rate, sides, dtype=amplitude.dtype)
     peak = find_peak(amplitude, freqs)
     peak_phase = jnp.take_along_axis(phase_bins, peak.index[..., None],

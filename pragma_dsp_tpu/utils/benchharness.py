@@ -4,8 +4,8 @@ Carries over the reference's BenchContext philosophy (bench/reallife/
 helpers.ts:152-338): warmup + timed iterations, min/avg/max, and a
 checksum accumulated from every result so runs are deterministic and
 dead-code-elimination-proof ("guardrails, not bragging", reference
-PLAN.md:169-184). Adds TPU-specific accounting: HBM bytes and FLOPs per
-call so every measurement reports a roofline fraction.
+PLAN.md:169-184). Adds device accounting: HBM bytes and FLOPs per call
+so every measurement on the card reports a roofline fraction.
 """
 
 from __future__ import annotations
@@ -20,38 +20,31 @@ import numpy as np
 __all__ = ["BenchResult", "BenchContext", "checksum", "device_specs",
            "memory_snapshot"]
 
-# Peak specs per TPU generation for roofline accounting.
-# (HBM GB/s, f32 matmul TFLOP/s, bf16 matmul TFLOP/s)
+# Published peaks per device, keyed by jax ``device_kind``, for roofline
+# accounting. Source: NVIDIA H100 Tensor Core GPU data sheet, SXM5 part,
+# dense rates without sparsity, at its 700 W power limit: 3.35 TB/s HBM3,
+# 67 TFLOP/s f32 (CUDA cores), 495 TFLOP/s TF32 and 989 TFLOP/s bf16
+# (tensor cores). A card set below 700 W (nvidia-smi power.limit) cannot
+# hold these under load; report the limit beside every share.
 _DEVICE_SPECS = {
-    "v5e": (819.0e9, 49.2e12, 197.0e12),
-    "v5 lite": (819.0e9, 49.2e12, 197.0e12),
-    "v4": (1228.0e9, 137.5e12 / 2, 275.0e12),
-    "v5p": (2765.0e9, 229.5e12 / 2, 459.0e12),
-    "v6e": (1640.0e9, 91.5e12, 918.0e12 / 2),
-    "cpu": (50.0e9, 0.5e12, 0.5e12),
+    "NVIDIA H100 80GB HBM3": {
+        "hbm_bytes_per_s": 3.35e12,
+        "f32_flops": 67.0e12,
+        "tf32_flops": 495.0e12,
+        "bf16_flops": 989.0e12,
+    },
 }
 
 
-def device_specs() -> Dict[str, float]:
-    kind = jax.devices()[0].device_kind.lower()
-    for key, (bw, f32, bf16) in _DEVICE_SPECS.items():
-        if key in kind:
-            return {"hbm_bytes_per_s": bw, "f32_flops": f32, "bf16_flops": bf16,
-                    "vpu_flops": _vpu_peak(bf16), "kind": kind}
-    return {"hbm_bytes_per_s": _DEVICE_SPECS["cpu"][0],
-            "f32_flops": _DEVICE_SPECS["cpu"][1],
-            "bf16_flops": _DEVICE_SPECS["cpu"][2],
-            "vpu_flops": _vpu_peak(_DEVICE_SPECS["cpu"][2]), "kind": kind}
-
-
-def _vpu_peak(bf16_flops: float) -> float:
-    """Modeled VPU peak (elementwise f32 ops/s): 4 ALUs x (8, 128) = 1024
-    vector lanes per cycle, clock inferred from the MXU bf16 peak
-    (bf16_flops / (4 MXUs x 128x128 MACs x 2 flops)). Algebraically
-    that is bf16_flops / 32 — e.g. v5e: 197 TF/s -> ~6.2 T elementwise
-    op/s. A modeled convention (like the HBM%% accounting), used to name
-    which engine binds a kernel row, not a vendor spec."""
-    return bf16_flops / 32.0
+def device_specs(kind: Optional[str] = None) -> Dict[str, Any]:
+    """Published peaks of ``kind`` (default: the first JAX device). A
+    device missing from the table is an error, never a default."""
+    kind = jax.devices()[0].device_kind if kind is None else kind
+    if kind not in _DEVICE_SPECS:
+        raise KeyError(
+            f"no published peaks for device kind {kind!r}; known: "
+            f"{sorted(_DEVICE_SPECS)}")
+    return dict(_DEVICE_SPECS[kind], kind=kind)
 
 
 def memory_snapshot() -> Dict[str, int]:
@@ -127,8 +120,8 @@ class BenchResult:
             out["hbm_fraction"] = (self.hbm_bytes_per_call / self.min_s
                                    / specs["hbm_bytes_per_s"])
         if self.flops_per_call:
-            out["mxu_fraction_f32"] = (self.flops_per_call / self.min_s
-                                       / specs["f32_flops"])
+            out["f32_fraction"] = (self.flops_per_call / self.min_s
+                                   / specs["f32_flops"])
         return out
 
 
@@ -174,18 +167,21 @@ class BenchContext:
         return res
 
     def report(self) -> str:
-        specs = device_specs()
-        lines = [f"device: {specs['kind']}"]
+        """One line per section. Roofline shares only on a device with
+        published peaks; elsewhere (the CPU) times and checksums only."""
+        kind = jax.devices()[0].device_kind
+        specs = device_specs(kind) if kind in _DEVICE_SPECS else None
+        lines = [f"device: {kind}"]
         for r in self.results:
             ms = r.min_s * 1e3
             line = f"{r.name:40s} min {ms:9.3f} ms  avg {r.avg_s*1e3:9.3f} ms"
             if r.msamples_per_s is not None:
                 line += f"  {r.msamples_per_s:10.1f} MS/s"
-            roof = r.roofline(specs)
+            roof = r.roofline(specs) if specs else {}
             if "hbm_fraction" in roof:
                 line += f"  hbm {100*roof['hbm_fraction']:5.1f}%"
-            if "mxu_fraction_f32" in roof:
-                line += f"  mxu {100*roof['mxu_fraction_f32']:5.1f}%"
+            if "f32_fraction" in roof:
+                line += f"  f32 {100*roof['f32_fraction']:5.1f}%"
             growth = r.hbm_growth_bytes
             if growth is not None and (r.mem_after or {}).get("hbm_in_use_bytes"):
                 line += f"  hbmΔ {growth/1e6:+.1f}MB"

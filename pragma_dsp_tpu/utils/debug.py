@@ -1,8 +1,8 @@
 """Debug / sanitizer utilities (SURVEY.md §5 "race detection / sanitizers").
 
 There are no data races in this model — everything is functional — so the
-"sanitizer build" means: run Pallas kernels in interpreter mode, check for
-NaN/Inf at stage boundaries, and make failures loud. The reference's
+"sanitizer build" means: check for NaN/Inf at every primitive and at
+stage boundaries, and make failures loud. The reference's
 analogue is TypeScript strict + noUncheckedIndexedAccess (tsconfig).
 """
 
@@ -18,22 +18,6 @@ __all__ = ["sanitizer_mode", "check_finite", "checked", "debug_nans"]
 
 
 @contextlib.contextmanager
-def sanitizer_mode():
-    """Run the enclosed block with every Pallas kernel interpreted
-    (pltpu.force_tpu_interpret_mode) and jax NaN-checking enabled —
-    slow, exact, loud. The 'sanitizer build' of SURVEY.md §5."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    prev_nans = jax.config.jax_debug_nans
-    jax.config.update("jax_debug_nans", True)
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            yield
-    finally:
-        jax.config.update("jax_debug_nans", prev_nans)
-
-
-@contextlib.contextmanager
 def debug_nans(enable: bool = True):
     """Toggle jax_debug_nans for a block."""
     prev = jax.config.jax_debug_nans
@@ -42,6 +26,13 @@ def debug_nans(enable: bool = True):
         yield
     finally:
         jax.config.update("jax_debug_nans", prev)
+
+
+def sanitizer_mode():
+    """Run the enclosed block with jax NaN-checking enabled: any
+    primitive that produces a NaN raises FloatingPointError at once —
+    slow, loud. The 'sanitizer build' of SURVEY.md §5."""
+    return debug_nans(True)
 
 
 def check_finite(name: str, *arrays) -> None:

@@ -1,11 +1,12 @@
 """Golden-fixture loading + SNR-bound comparison harness.
 
 The reference validates in float64 with absolute tolerances down to 1e-10
-(reference test/reallife/helpers.ts:97-136). On TPU the compute dtype is
-f32, where those tolerances are unreachable, so this harness offers both:
+(reference test/reallife/helpers.ts:97-136). On the GPU the compute dtype
+is f32, where those tolerances are unreachable, so this harness offers
+both:
 
 * absolute/relative closeness for f64 runs (CPU tests with x64 enabled)
-* SNR bounds in dB for f32/TPU runs (BASELINE.json "within SNR bound")
+* SNR bounds in dB for f32 runs (BASELINE.json "within SNR bound")
 """
 
 from __future__ import annotations
@@ -61,9 +62,12 @@ def rms_error(ref, test) -> float:
 
 def snr_db(ref, test) -> float:
     """Signal-to-error ratio in dB; +inf for exact match, -inf when the
-    reference is zero but the output is not."""
-    ref = np.asarray(ref, dtype=np.float64)
-    test = np.asarray(test, dtype=np.float64)
+    reference is zero but the output is not. Complex inputs compare
+    both parts."""
+    ref, test = np.asarray(ref), np.asarray(test)
+    wide = (np.complex128 if np.iscomplexobj(ref) or np.iscomplexobj(test)
+            else np.float64)
+    ref, test = ref.astype(wide), test.astype(wide)
     sig = float(np.sum(np.abs(ref) ** 2))
     err = float(np.sum(np.abs(ref - test) ** 2))
     if err == 0.0:

@@ -3,7 +3,7 @@
 Parity with reference src/xform/fourier.ts:11-165. Window values are
 computed in float64 with numpy at trace time (sizes are static) and cast to
 the compute dtype — this matches the reference/scipy ``sym=True`` formulas
-bit-for-bit in f64 and gives correctly-rounded f32 constants on TPU.
+bit-for-bit in f64 and gives correctly-rounded f32 constants.
 """
 
 from __future__ import annotations

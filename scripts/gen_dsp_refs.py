@@ -3,7 +3,7 @@
 channelizer references from SciPy/NumPy (BASELINE.json configs 3-5).
 
 Extends the reference's generator family (scripts/gen_reallife_refs.py
-style) to the TPU build's filtering stack — committed, seeded, with the
+style) to the batched build's filtering stack — committed, seeded, with the
 convention documented inside the data (reference PLAN.md:144-167).
 
 Usage: python scripts/gen_dsp_refs.py [--out-dir tests/fixtures/dsp]

@@ -173,136 +173,3 @@ def test_frames_streaming_equals_flat_streaming():
                                    np.asarray(yf.real), atol=0)
         np.testing.assert_allclose(np.asarray(yF.imag),
                                    np.asarray(yf.imag), atol=0)
-
-
-@pytest.mark.slow
-def test_fused_frames_kernel_equals_flat_kernel():
-    from pragma_dsp_tpu.ops.pfb_pallas import (
-        pfb_channelize_frames_pallas, pfb_channelize_pallas)
-
-    rng = np.random.default_rng(8)
-    c = 256
-    L = c * 24
-    x = rng.standard_normal(L) + 1j * rng.standard_normal(L)
-    xc = ComplexArray(jnp.asarray(x.real, jnp.float32),
-                      jnp.asarray(x.imag, jnp.float32))
-    h = jnp.asarray(pfb_taps(c, 8), jnp.float32)
-    ref = pfb_channelize_pallas(xc, h, c, interpret=True,
-                                precision="highest")
-    fr = ComplexArray(xc.real.reshape(-1, c), xc.imag.reshape(-1, c))
-    got = pfb_channelize_frames_pallas(fr, h, c, interpret=True,
-                                       precision="highest")
-    np.testing.assert_allclose(np.asarray(got.real),
-                               np.asarray(ref.real), atol=0)
-    np.testing.assert_allclose(np.asarray(got.imag),
-                               np.asarray(ref.imag), atol=0)
-
-
-@pytest.mark.slow
-def test_channelizer_bf16x3_parity():
-    """bf16x3 analysis-DFT mode keeps >=95 dB SNR vs the numpy golden at
-    C=256 (channelizer.py precision plumbing; pallas impl forced so the
-    kernel path runs in interpret mode off-TPU)."""
-    from pragma_dsp_tpu.ops import set_fft_impl
-
-    c = 256
-    x = (RNG.standard_normal(c * 16) + 1j * RNG.standard_normal(c * 16))
-    h = pfb_taps(c, 8)
-    ref = numpy_pfb(x, h, c)
-    set_fft_impl("pallas")
-    try:
-        got = pfb_channelize(_ca(x), c, h, precision="bf16x3")
-    finally:
-        set_fft_impl("auto")
-    assert_snr(ref.real, np.asarray(got.real), 95, "pfb bf16x3 re")
-    assert_snr(ref.imag, np.asarray(got.imag), 95, "pfb bf16x3 im")
-
-
-# ── fused single-pass PFB kernel (ops/pfb_pallas.py) ──
-
-
-@pytest.mark.slow
-def test_fused_pfb_matches_reference_impl():
-    """The fused kernel must equal the XLA-composed channelizer (same
-    convention: branch filter + forward analysis DFT, natural order)."""
-    from pragma_dsp_tpu.ops.pfb_pallas import pfb_channelize_pallas
-
-    rng = np.random.default_rng(5)
-    for c, tpb in [(128, 8), (256, 8), (256, 4), (512, 6)]:
-        L = c * 24
-        x = rng.standard_normal(L) + 1j * rng.standard_normal(L)
-        xc = ComplexArray(jnp.asarray(x.real, jnp.float32),
-                          jnp.asarray(x.imag, jnp.float32))
-        h = pfb_taps(c, tpb)
-        ref = pfb_channelize(xc, c, h)
-        got = pfb_channelize_pallas(xc, jnp.asarray(h, jnp.float32), c,
-                                    interpret=True, precision="highest")
-        assert got.real.shape == ref.real.shape
-        np.testing.assert_allclose(np.asarray(got.real),
-                                   np.asarray(ref.real), atol=1e-4)
-        np.testing.assert_allclose(np.asarray(got.imag),
-                                   np.asarray(ref.imag), atol=1e-4)
-
-
-@pytest.mark.slow
-def test_fused_pfb_f64_convention():
-    """Direct check against the documented f64 convention (module
-    docstring formula), tighter than impl-vs-impl."""
-    from pragma_dsp_tpu.ops.pfb_pallas import pfb_channelize_pallas
-
-    rng = np.random.default_rng(6)
-    c, tpb = 256, 8
-    L = c * 40
-    x = rng.standard_normal(L) + 1j * rng.standard_normal(L)
-    h = pfb_taps(c, tpb)
-    xv = x.reshape(-1, c)
-    hp = h.reshape(tpb, c)
-    xp = np.concatenate([np.zeros((tpb - 1, c)), xv], axis=0)
-    v = np.zeros((xv.shape[0], c), complex)
-    for t in range(tpb):
-        v += xp[tpb - 1 - t: tpb - 1 - t + xv.shape[0]] * hp[t]
-    ref = np.fft.fft(v, axis=-1)
-    xc = ComplexArray(jnp.asarray(x.real, jnp.float32),
-                      jnp.asarray(x.imag, jnp.float32))
-    got = pfb_channelize_pallas(xc, jnp.asarray(h, jnp.float32), c,
-                                interpret=True, precision="highest")
-    z = np.asarray(got.real, np.float64) + 1j * np.asarray(got.imag,
-                                                           np.float64)
-    snr = 10 * np.log10((np.abs(ref) ** 2).sum()
-                        / (np.abs(z - ref) ** 2).sum())
-    assert snr > 125.0, f"SNR {snr:.1f} dB"
-
-
-@pytest.mark.slow
-def test_fused_pfb_bf16x3_snr():
-    from pragma_dsp_tpu.ops.pfb_pallas import pfb_channelize_pallas
-
-    rng = np.random.default_rng(7)
-    c, tpb = 256, 8
-    L = c * 40
-    x = rng.standard_normal(L) + 1j * rng.standard_normal(L)
-    h = pfb_taps(c, tpb)
-    ref = pfb_channelize(
-        ComplexArray(jnp.asarray(x.real), jnp.asarray(x.imag)), c, h)
-    zr = np.asarray(ref.real, np.float64) + 1j * np.asarray(ref.imag,
-                                                            np.float64)
-    got = pfb_channelize_pallas(
-        ComplexArray(jnp.asarray(x.real, jnp.float32),
-                     jnp.asarray(x.imag, jnp.float32)),
-        jnp.asarray(h, jnp.float32), c, interpret=True, precision="bf16x3")
-    z = np.asarray(got.real, np.float64) + 1j * np.asarray(got.imag,
-                                                           np.float64)
-    snr = 10 * np.log10((np.abs(zr) ** 2).sum()
-                        / (np.abs(z - zr) ** 2).sum())
-    assert snr > 105.0, f"SNR {snr:.1f} dB"
-
-
-def test_fused_pfb_rejects_bad_channels():
-    from pragma_dsp_tpu.ops.pfb_pallas import pfb_channelize_pallas
-
-    x = ComplexArray(jnp.zeros(1024, jnp.float32),
-                     jnp.zeros(1024, jnp.float32))
-    with pytest.raises(ValueError):
-        pfb_channelize_pallas(x, jnp.ones(64), 64, interpret=True)
-    with pytest.raises(ValueError):
-        pfb_channelize_pallas(x, jnp.ones(96 * 3), 96, interpret=True)

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 
 from pragma_dsp_tpu.core import ComplexArray, Radix2Fft, fft, ifft
-from pragma_dsp_tpu.utils.fixtures import assert_close
+from pragma_dsp_tpu.utils.fixtures import assert_close, snr_db
 
 
 def _cases(unit_fixtures, kind=None):
@@ -87,59 +87,81 @@ def test_non_power_of_two_raises():
 
 
 def test_plan_routes_through_dispatch():
-    """Radix2Fft is built on ops.dispatch (round-1 VERDICT next-step #2):
-    forcing the pallas impl must flow through the expert rung and agree
-    with the portable stockham path (and numpy)."""
+    """Radix2Fft is built on ops.dispatch: pinning the "xla" impl
+    (jnp.fft, cuFFT on the GPU) flows through the expert rung and agrees
+    with the portable stockham path and numpy."""
     from pragma_dsp_tpu.ops.dispatch import set_fft_impl
 
     rng = np.random.default_rng(7)
     x = jnp.asarray(rng.standard_normal((4, 256)), jnp.float32)
-    set_fft_impl("pallas")
-    try:
-        out_p = Radix2Fft(256).forward(x)
-    finally:
-        set_fft_impl("auto")
-    out_s = Radix2Fft(256).forward(x)
+    outs = {}
+    for impl in ("xla", "stockham"):
+        set_fft_impl(impl)
+        try:
+            outs[impl] = Radix2Fft(256).forward(x)
+        finally:
+            set_fft_impl("auto")
     ref = np.fft.fft(np.asarray(x, np.float64), axis=-1)
-    for out, label in ((out_p, "pallas"), (out_s, "auto")):
+    for label, out in outs.items():
         assert_close(ref.real, np.asarray(out.real), abs_tol=1e-3,
                      label=f"{label} re")
         assert_close(ref.imag, np.asarray(out.imag), abs_tol=1e-3,
                      label=f"{label} im")
-    np.testing.assert_allclose(np.asarray(out_p.real), np.asarray(out_s.real),
-                               atol=2e-3)
+    np.testing.assert_allclose(np.asarray(outs["xla"].real),
+                               np.asarray(outs["stockham"].real), atol=2e-3)
 
 
-@pytest.mark.slow
-def test_pallas_precision_modes():
-    """bf16x3 split-dot mode keeps >=100 dB SNR vs numpy f64 and the
-    permuted->natural contract identical to the highest-precision path
-    (ops/fft_pallas.py precision plumbing)."""
-    from pragma_dsp_tpu.ops.fft_pallas import (
-        fft_pallas, fft_pallas_permuted, ifft_pallas_from_permuted,
-        permuted_to_natural)
+@pytest.mark.parametrize("axis", [-1, -2])
+@pytest.mark.parametrize("n", [8, 256, 1024, 4096])
+def test_xla_impl_matches_numpy(n, axis):
+    """The "xla" route joins the split planes into complex, runs
+    jnp.fft and splits again: f64 in stays f64 (exact to rounding), f32
+    stays f32, and inverse(forward) is the identity."""
+    from pragma_dsp_tpu.ops import fft as dfft, ifft as difft
 
-    rng = np.random.default_rng(11)
-    n = 512
-    z = rng.standard_normal((4, n)) + 1j * rng.standard_normal((4, n))
-    ref = np.fft.fft(z, axis=-1)
-    xc = ComplexArray(jnp.asarray(z.real, jnp.float32),
-                      jnp.asarray(z.imag, jnp.float32))
-
-    def snr(ref_c, out):
+    rng = np.random.default_rng(n)
+    shape = (3, n) if axis == -1 else (n, 3)
+    z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    ref = np.fft.fft(z, axis=axis)
+    for dtype, tol_db in ((jnp.float64, 250.0), (jnp.float32, 120.0)):
+        xc = ComplexArray(jnp.asarray(z.real, dtype),
+                          jnp.asarray(z.imag, dtype))
+        out = dfft(xc, axis=axis, impl="xla")
+        assert out.real.dtype == dtype and out.real.shape == shape
         got = np.asarray(out.real) + 1j * np.asarray(out.imag)
-        err = np.linalg.norm(got - ref_c)
-        return 20 * np.log10(np.linalg.norm(ref_c) / max(err, 1e-300))
+        assert snr_db(ref, got) > tol_db
+        back = difft(out, axis=axis, impl="xla")
+        rt = np.asarray(back.real) + 1j * np.asarray(back.imag)
+        assert snr_db(z, rt) > tol_db
 
-    for prec in ("highest", "bf16x3"):
-        out = fft_pallas(xc, precision=prec)
-        bound = 120.0 if prec == "highest" else 100.0
-        assert snr(ref, out) > bound, (prec, snr(ref, out))
-        p = fft_pallas_permuted(xc, precision=prec)
-        nat_re = permuted_to_natural(p.real, n)
-        np.testing.assert_allclose(nat_re, np.asarray(out.real), rtol=0,
-                                   atol=0)
-        rt = ifft_pallas_from_permuted(p, n, precision=prec)
-        rt_c = np.asarray(rt.real) + 1j * np.asarray(rt.imag)
-        err = np.linalg.norm(rt_c - z)
-        assert 20 * np.log10(np.linalg.norm(z) / max(err, 1e-300)) > bound
+
+@pytest.mark.parametrize("platform,expected", [
+    ("cpu", "stockham"), ("gpu", "xla"), ("rocm", None), ("METAL", None)])
+def test_dispatch_policy_per_platform(platform, expected):
+    """The per-platform choice lives in ops.dispatch alone: stockham on
+    the CPU (the independent f64 reference), cuFFT on the GPU, and any
+    other platform is an error instead of a silent default."""
+    from pragma_dsp_tpu.ops.dispatch import policy
+
+    if expected is None:
+        with pytest.raises(ValueError, match="no FFT policy"):
+            policy(platform)
+    else:
+        assert policy(platform) == expected
+
+
+def test_fft_route_follows_override_and_rejects_unknown_impl():
+    from pragma_dsp_tpu.ops.dispatch import (fft as dfft, fft_route,
+                                             set_fft_impl)
+
+    assert fft_route() == "stockham"          # the test process is CPU
+    set_fft_impl("xla")
+    try:
+        assert fft_route() == "xla"
+    finally:
+        set_fft_impl("auto")
+    for gone in ("pallas", "big", "fourstep"):
+        with pytest.raises(ValueError, match="unknown fft impl"):
+            set_fft_impl(gone)
+    with pytest.raises(ValueError, match="unknown fft impl"):
+        dfft(jnp.zeros(8), impl="pallas")

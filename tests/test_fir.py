@@ -93,26 +93,3 @@ def test_overlap_save_rejects_tiny_block():
     taps = jnp.asarray(np.hamming(200), dtype=jnp.float32)
     with pytest.raises(ValueError, match="block"):
         overlap_save_filter(x, taps, block=256)
-
-
-@pytest.mark.slow
-def test_overlap_save_bf16x3_parity():
-    """bf16x3 split-dot overlap-save keeps >=100 dB SNR vs lfilter and the
-    full-precision pallas path (fir.py precision plumbing; pallas forced
-    so the interpret-mode kernel runs off-TPU)."""
-    from pragma_dsp_tpu.ops import set_fft_impl
-
-    x = RNG.standard_normal(6000).astype(np.float32)
-    taps = sps.firwin(127, 0.2).astype(np.float32)
-    ref = sps.lfilter(np.float64(taps), 1.0, np.float64(x))
-    set_fft_impl("pallas")
-    try:
-        hi = np.asarray(overlap_save_filter(jnp.asarray(x), jnp.asarray(taps),
-                                            precision="highest"))
-        lo = np.asarray(overlap_save_filter(jnp.asarray(x), jnp.asarray(taps),
-                                            precision="bf16x3"))
-    finally:
-        set_fft_impl("auto")
-    assert hi.shape == lo.shape == ref.shape
-    assert_snr(ref, hi, 110, "os pallas highest")
-    assert_snr(ref, lo, 100, "os pallas bf16x3")

@@ -35,7 +35,7 @@ def test_upfirdn_matches_scipy(up, down):
 
 @pytest.mark.parametrize("up,down", [(3, 2), (147, 160)])
 def test_upfirdn_bf16x3_snr(up, down):
-    """The TPU-default bf16x3 banded matmul (3 DEFAULT bf16 passes on
+    """The opt-in bf16x3 banded matmul (3 DEFAULT bf16 passes on
     hi/lo-split operands) must stay >=100 dB of the f64 scipy golden —
     the same production gate the FFT kernels carry."""
     x = RNG.standard_normal(4000)

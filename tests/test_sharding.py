@@ -467,8 +467,8 @@ def test_sharded_wbfm_validation(mesh):
 def test_sharded_wbfm_stays_on_banded_path(mesh):
     """Same guard as tests/test_fm_receiver.py: the receiver inside the
     shard_map body must keep numpy taps so upfirdn stays on its
-    banded-MXU path (a traced-taps regression silently falls back to
-    the ~100x-slower dilated conv)."""
+    banded-matmul path (a traced-taps regression silently falls back to
+    the dilated conv)."""
     from pragma_dsp_tpu.parallel import sharded_wbfm_demod
 
     xc = _fm_iq(8 * 16800)
@@ -476,31 +476,6 @@ def test_sharded_wbfm_stays_on_banded_path(mesh):
         lambda a, b: sharded_wbfm_demod(ComplexArray(a, b), mesh))(
             xc.real, xc.imag))
     assert "conv_general_dilated" not in jaxpr
-
-
-def test_dist_fft_cols_fold_path(mesh):
-    """The fused column-stage path (inter-stage twiddle folded into the
-    column Pallas kernel, pinned via set_fft_impl('pallas')) matches
-    numpy and the default path bit-for-bit in intent (SNR-bounded f32:
-    the fold changes operation ORDER, not the math)."""
-    from pragma_dsp_tpu.ops import set_fft_impl
-
-    n = 1 << 16
-    n2, n1 = dist_fft_shape(n, 8)
-    assert n2 > 128                    # fold path requires a col kernel
-    z = RNG.standard_normal(n) + 1j * RNG.standard_normal(n)
-    xv = z.reshape(n2, n1)
-    xc = ComplexArray(jnp.asarray(xv.real, jnp.float32),
-                      jnp.asarray(xv.imag, jnp.float32))
-    set_fft_impl("pallas")
-    try:
-        p = dist_fft(xc, mesh)
-    finally:
-        set_fft_impl("auto")
-    got = permuted_to_natural_host(p)
-    ref = np.fft.fft(z)
-    assert snr_db(np.stack([ref.real, ref.imag]),
-                  np.stack([got.real, got.imag])) > 100
 
 
 # ── frames-sharded PFB + no-turn consumer (round-4 VERDICT #2/#5) ──
@@ -648,27 +623,9 @@ def test_2d_mesh_channel_power(mesh2d):
     np.testing.assert_allclose(got, ref, rtol=1e-7, atol=1e-12)
 
 
-def test_optimal_chunks_model():
-    """The auto overlap depth comes from the t_comm/t_fft2 model
-    (round-4 VERDICT #6): 1 on a 1-device mesh (pure overhead), always
-    a divisor of the chunked extent, and deeper for bigger transforms
-    where the hideable tail amortises the per-chunk cost."""
-    from pragma_dsp_tpu.parallel import optimal_chunks
-
-    assert optimal_chunks(1024, 1024, 1) == 1
-    for n2, n1 in [(128, 128), (1024, 1024), (4096, 2048)]:
-        for d in (2, 4, 8):
-            c = optimal_chunks(n2, n1, d)
-            assert (n2 // d) % c == 0
-            assert 1 <= c <= 8
-    # monotone in transform size (same d, same model constants)
-    c_small = optimal_chunks(128, 128, 8)
-    c_big = optimal_chunks(8192, 8192, 8)
-    assert c_big >= c_small
-
-
 def test_dist_fft_auto_depth_runs(mesh):
-    """chunks=None rides the model; parity must hold whatever it picks."""
+    """The default depth (chunks=1, the monolithic corner turn) keeps
+    parity."""
     n = 1 << 12
     n2, n1 = dist_fft_shape(n, 8)
     x = RNG.standard_normal(n) + 1j * RNG.standard_normal(n)
@@ -728,8 +685,8 @@ def test_sharded_upfirdn_decimate(mesh):
 
 
 def test_sharded_upfirdn_stays_on_banded_path(mesh):
-    """The closed-over numpy taps must keep the banded-MXU lowering (a
-    traced-taps regression falls onto the ~100x dilated-conv path —
+    """The closed-over numpy taps must keep the banded-matmul lowering (a
+    traced-taps regression falls onto the dilated-conv path —
     the config-4 bug class, jaxpr-guarded like the WBFM chain)."""
     from pragma_dsp_tpu.parallel.sharded import _build_sharded_upfirdn
     from pragma_dsp_tpu.ops.polyphase import resampler_taps

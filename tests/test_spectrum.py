@@ -51,9 +51,12 @@ def test_batched_spectrum_matches_loop(unit_fixtures):
 
 
 def test_bf16_input_rides_f32_pipeline():
-    """bf16 samples upcast to f32 (round-4 VERDICT #9): the result is
-    bit-identical to feeding the f32 value of the same bf16 data, so on
-    TPU the beginner rung always hits the fused kernel path."""
+    """bf16 samples upcast to f32: the result is bit-identical to
+    feeding the f32 value of the same bf16 data, and the transform is
+    the one ops.dispatch chooses for the platform (no spectrum-specific
+    kernel path)."""
+    from pragma_dsp_tpu.ops.dispatch import fft_route, policy, set_fft_impl
+
     rng = np.random.default_rng(12)
     x16 = jnp.asarray(rng.standard_normal(256), jnp.bfloat16)
     r16 = spectrum(x16, sample_rate=48000.0, window="hann")
@@ -64,7 +67,22 @@ def test_bf16_input_rides_f32_pipeline():
                                   np.asarray(r32.amplitude))
     np.testing.assert_array_equal(np.asarray(r16.phase),
                                   np.asarray(r32.phase))
-    # and the fused-path predicate accepts what spectrum() now passes it
-    from pragma_dsp_tpu.public.spectrum import _use_fused_one_sided
-    assert _use_fused_one_sided(x16.astype(jnp.float32), 256, "one") \
-        == (jax.default_backend() == "tpu")
+    # The dispatch choice, read off the traced program: the CPU policy
+    # (stockham) has no fft primitive; pinning "xla" (the GPU policy)
+    # puts exactly one jnp.fft in the beginner rung.
+    assert fft_route() == policy(jax.default_backend()) == "stockham"
+    def jaxpr_of_spectrum():
+        # a fresh function each time: make_jaxpr caches by function
+        return str(jax.make_jaxpr(
+            lambda v: spectrum(v, sample_rate=48000.0, window="hann"))(x16))
+
+    assert " fft[" not in jaxpr_of_spectrum()
+    set_fft_impl("xla")
+    try:
+        jaxpr = jaxpr_of_spectrum()
+        r_xla = spectrum(x16, sample_rate=48000.0, window="hann")
+    finally:
+        set_fft_impl("auto")
+    assert jaxpr.count(" fft[") == 1
+    np.testing.assert_allclose(np.asarray(r_xla.amplitude),
+                               np.asarray(r32.amplitude), atol=1e-6)

@@ -11,9 +11,6 @@ from pragma_dsp_tpu.stream import (
 from pragma_dsp_tpu.xform.fourier import window_values
 
 
-pytestmark = pytest.mark.slow  # interpret-mode Pallas tier
-
-
 def _numpy_stft(x, n_fft, hop, window):
     w = window_values(window, n_fft)
     n_frames = 1 + (len(x) - n_fft) // hop
@@ -110,129 +107,6 @@ def test_spectrogram_amplitude_fast_path_matches_full():
     full = spectrogram(jnp.asarray(x), 1024, 256, "hann", 48000.0)
     np.testing.assert_allclose(fast, np.asarray(full.amplitude),
                                rtol=0, atol=2e-6)
-
-
-def test_framed_spectrum_kernel_matches_frame_path():
-    """The framed (signal-in) fused kernel must equal frame_signal +
-    per-frame spectrum kernel bit-for-bit: it reads the same samples
-    through halo'd row blocks instead of materialised frames
-    (reference framing semantics: src/effect/index.ts:190-194, trailing
-    samples dropped)."""
-    from pragma_dsp_tpu.ops.fft_pallas import (
-        framed_spectrum_amp_phase_pallas, framed_spectrum_amplitude_pallas,
-        spectrum_amp_phase_pallas, spectrum_amplitude_pallas)
-
-    rng = np.random.default_rng(21)
-    for (n, hop, length, batch) in [(256, 128, 2000, 2), (512, 128, 4096, 1),
-                                    (512, 512, 2048, 2), (256, 256, 256, 1)]:
-        x = rng.standard_normal((batch, length)).astype(np.float32)
-        frames = frame_signal(jnp.asarray(x), n, hop)
-        amp_ref, ph_ref = spectrum_amp_phase_pallas(frames, n, "hann",
-                                                    interpret=True)
-        amp, ph = framed_spectrum_amp_phase_pallas(x, n, hop, "hann",
-                                                   interpret=True)
-        assert amp.shape == amp_ref.shape
-        np.testing.assert_allclose(np.asarray(amp), np.asarray(amp_ref),
-                                   rtol=0, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(ph), np.asarray(ph_ref),
-                                   rtol=0, atol=1e-5)
-        amp2 = framed_spectrum_amplitude_pallas(x, n, hop, "hann",
-                                                interpret=True)
-        ref2 = spectrum_amplitude_pallas(frames, n, "hann",
-                                         interpret=True)
-        np.testing.assert_allclose(np.asarray(amp2), np.asarray(ref2),
-                                   rtol=0, atol=1e-6)
-
-
-def test_framed_spectrum_kernel_xla_turn_path():
-    """n = 4096 drives the framed kernel's turn="xla" strategy (permuted
-    pair-packed rows + XLA transpose epilogue) — must still equal the
-    frame-materialising path exactly."""
-    from pragma_dsp_tpu.ops.fft_pallas import (
-        framed_spectrum_amplitude_pallas, spectrum_amplitude_pallas)
-
-    rng = np.random.default_rng(23)
-    n, hop = 4096, 2048
-    x = rng.standard_normal(3 * n).astype(np.float32)
-    frames = frame_signal(jnp.asarray(x), n, hop)
-    ref = spectrum_amplitude_pallas(frames, n, "hann", interpret=True)
-    amp = framed_spectrum_amplitude_pallas(x, n, hop, "hann",
-                                           interpret=True)
-    np.testing.assert_allclose(np.asarray(amp), np.asarray(ref),
-                               rtol=0, atol=1e-6)
-
-
-def test_framed_spectrum_support_gate():
-    """Unsupported (n, hop) combos must raise, and the support predicate
-    must mirror the kernel's constraints (pow-2 n > 128, 128 | hop | n)."""
-    import pytest
-
-    from pragma_dsp_tpu.ops.fft_pallas import (
-        framed_spectrum_amplitude_pallas, framed_spectrum_supported)
-
-    assert framed_spectrum_supported(1024, 256)
-    assert framed_spectrum_supported(4096, 1024)
-    assert not framed_spectrum_supported(1024, 100)   # hop % 128 != 0
-    assert not framed_spectrum_supported(1024, 384)   # hop !| n
-    assert not framed_spectrum_supported(128, 128)    # n == LANES
-    assert not framed_spectrum_supported(1000, 128)   # not pow-2
-    assert not framed_spectrum_supported(1024, 256, sides="two")
-    with pytest.raises(ValueError):
-        framed_spectrum_amplitude_pallas(
-            jnp.zeros(2048, jnp.float32), 1024, 100, interpret=True)
-    with pytest.raises(ValueError):
-        framed_spectrum_amplitude_pallas(
-            jnp.zeros(512, jnp.float32), 1024, 256, interpret=True)
-
-
-def test_spectrogram_amplitude_framed_option():
-    """stream.spectrogram_amplitude with framed=True routes through the
-    framed (signal-in) kernel; output must stay identical to the
-    default frame-materialising path, and framed=True on an unsupported
-    (n, hop) must raise."""
-    import pytest
-
-    from pragma_dsp_tpu.stream import spectrogram_amplitude
-
-    rng = np.random.default_rng(22)
-    x = rng.standard_normal(4096).astype(np.float32)
-    fast = np.asarray(spectrogram_amplitude(jnp.asarray(x), 512, 128,
-                                            "hann", framed=True))
-    full = spectrogram(jnp.asarray(x), 512, 128, "hann", 48000.0)
-    np.testing.assert_allclose(fast, np.asarray(full.amplitude),
-                               rtol=0, atol=2e-6)
-    deflt = np.asarray(spectrogram_amplitude(jnp.asarray(x), 512, 128,
-                                             "hann"))
-    np.testing.assert_allclose(fast, deflt, rtol=0, atol=0)
-    with pytest.raises(ValueError):
-        spectrogram_amplitude(jnp.asarray(x), 512, 100, "hann", framed=True)
-
-
-def test_fused_spectrogram_path_equivalence():
-    """The TPU one-sided spectrogram routes through the fused amp+phase
-    kernel (stream/stft.py spectrogram): its outputs must equal the
-    generic stft-based path at config-2 scale (n_fft=4096, 75% overlap,
-    exercising the n2=32 row-pair packing) — verified here in interpret
-    mode by running the kernel on the same frames."""
-    from pragma_dsp_tpu.ops.fft_pallas import spectrum_amp_phase_pallas
-    from pragma_dsp_tpu.stream.stft import frame_signal, spectrogram
-
-    rng = np.random.default_rng(12)
-    n_fft, hop = 4096, 1024
-    x = (0.5 * np.sin(2 * np.pi * 1000.0 * np.arange(3 * n_fft) / 48000.0)
-         + 0.02 * rng.standard_normal(3 * n_fft)).astype(np.float32)
-    ref = spectrogram(jnp.asarray(x, jnp.float64), n_fft, hop, "hann",
-                      48000.0)
-    frames = frame_signal(jnp.asarray(x, jnp.float32), n_fft, hop)
-    amp, ph = spectrum_amp_phase_pallas(frames, n_fft, "hann",
-                                        interpret=True, precision="highest")
-    np.testing.assert_allclose(np.asarray(amp, np.float64),
-                               np.asarray(ref.amplitude, np.float64),
-                               atol=5e-6)
-    mask = np.asarray(ref.amplitude) > 1e-3
-    d = np.angle(np.exp(1j * (np.asarray(ph, np.float64)
-                              - np.asarray(ref.phase, np.float64))))[mask]
-    assert np.abs(d).max() < 1e-4
 
 
 def test_welch_psd_matches_scipy_rect():

@@ -2,7 +2,7 @@
 
 The carry designs (FirState / StftState / UpfirdnState / WbfmStreamState)
 are exercised UNDER lax.scan, and the jitted+donated step is checked to
-produce identical results — the TPU analogue of the reference expert
+produce identical results — the analogue of the reference expert
 rung's out-buffer-reuse contract (reference src/core/fft.ts:89-106,
 README.md:41-51 "zero-allocation hot loop").
 """
@@ -113,7 +113,7 @@ def test_wbfm_scan_matches_batch():
 
 def test_jit_stream_step_donated_matches_undonated():
     """donate_argnums on the carry changes nothing numerically (and on
-    TPU reuses the state buffer in place)."""
+    the GPU reuses the state buffer in place)."""
     h = resampler_taps(1, 5, 127)
     rng = np.random.default_rng(7)
     x = rng.standard_normal((2, 2000)).astype(np.float32)

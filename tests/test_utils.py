@@ -7,6 +7,7 @@ import tempfile
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from pragma_dsp_tpu.ops.fir import fir_step, fir_stream_init
 from pragma_dsp_tpu.stream import StftState, stft_stream_init
@@ -54,15 +55,71 @@ def test_checkpoint_resume_continues_stream():
 
 
 def test_sanitizer_mode_runs_kernels_interpreted():
-    from pragma_dsp_tpu.ops import fft_pallas
+    """The sanitizer build is NaN-checking: finite pipelines run as
+    usual inside it (here the dispatch FFT against numpy), a primitive
+    that makes a NaN raises at once, and the flag is restored after."""
+    import pytest
+
     from pragma_dsp_tpu.core import ComplexArray
+    from pragma_dsp_tpu.ops import fft
 
     z = np.random.default_rng(0).standard_normal((2, 256)).astype(np.float32)
+    before = jax.config.jax_debug_nans
     with sanitizer_mode():
-        out = fft_pallas(ComplexArray(jnp.asarray(z), jnp.zeros_like(jnp.asarray(z))))
+        assert jax.config.jax_debug_nans
+        out = fft(ComplexArray(jnp.asarray(z), jnp.zeros_like(jnp.asarray(z))))
+        with pytest.raises(FloatingPointError):
+            jnp.log(jnp.asarray([-1.0])).block_until_ready()
+    assert jax.config.jax_debug_nans == before
     ref = np.fft.fft(z, axis=-1)
     assert snr_db(np.stack([ref.real, ref.imag]),
                   np.stack([np.asarray(out.real), np.asarray(out.imag)])) > 110
+
+
+@pytest.mark.parametrize("kind", ["NVIDIA H100 80GB HBM3", "cpu",
+                                  "NVIDIA H200", "NVIDIA A100-SXM4-80GB"])
+def test_device_specs_known_kind_or_error(kind):
+    """Peaks come from one published table keyed by device_kind; a
+    device missing from it is an error, never a fallback."""
+    from pragma_dsp_tpu.utils.benchharness import device_specs
+
+    if kind.startswith("NVIDIA H100"):
+        s = device_specs(kind)
+        assert s["kind"] == kind
+        assert s["hbm_bytes_per_s"] == 3.35e12
+        assert (s["f32_flops"], s["tf32_flops"], s["bf16_flops"]) == (
+            67.0e12, 495.0e12, 989.0e12)
+    else:
+        with pytest.raises(KeyError, match="no published peaks"):
+            device_specs(kind)
+
+
+@pytest.mark.parametrize("env_dir", [None, "/elsewhere/jax-cache"])
+def test_compile_cache_placement(env_dir, monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set the helper sets nothing;
+    otherwise it pins the fixed <repo>/.jax_cache (never a temp, pid or
+    time-based path, which would miss on every run)."""
+    from pragma_dsp_tpu.utils import compile_cache as cc
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cc.REPO_CACHE_DIR == os.path.join(repo, ".jax_cache")
+    env = {} if env_dir is None else {"JAX_COMPILATION_CACHE_DIR": env_dir}
+    want = cc.REPO_CACHE_DIR if env_dir is None else None
+    assert cc.compile_cache_dir(env) == want
+
+    calls = []
+    monkeypatch.setattr(jax.config, "update",
+                        lambda k, v: calls.append((k, v)))
+    if env_dir is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+    got = cc.enable_compile_cache()
+    if env_dir is None:
+        assert got == cc.REPO_CACHE_DIR
+        assert calls == [("jax_compilation_cache_dir", cc.REPO_CACHE_DIR)]
+    else:
+        assert got == env_dir and calls == []
 
 
 def test_barrier_on_local_mesh():
